@@ -1,0 +1,112 @@
+"""Weight bridge: JAX variable trees -> the port's modules.
+
+`load_jax_variables(module, variables)` takes a ``{"params", "stats"}``
+tree as the JAX package's `NsvaeEncoder.init` / `VaeDecoder.init` build
+it, with numpy leaves, and fills the port module's parameters and
+buffers. The port's names are the reference's state_dict names, so this
+is the inverse of the JAX package's `models/torch_import.py`:
+
+  encoder[i].conv.wr (kh,kw,Ci,Co)   -> encoders.{i}.conv.conv_re.weight (Co,Ci,kh,kw)
+  decoder[i].conv.wr (kh,kw,Ci,Co)   -> decoders.{i}.transconv.tconv_re.weight (Ci,Co,kh,kw)
+  encoder[i].bn.* / stats mean_r ... -> encoders.{i}.bn.* / running_mean_real ...
+  encoder[i].prelu ()                -> encoders.{i}.prelu.weight (1,)
+  lstm.re[k].w_ih (In,4H)            -> lstms.0.lstm_re.weight_ih_l{k} (4H,In)
+  dense.wr (I,O)                     -> dense.linear_read.weight (O,I)
+  speech_heads.mean.wr (I,O)         -> speech_dense_mean.linear_read.weight (O,I)
+
+The BN step counter `count` has no counterpart in the port (the eval
+path never reads it) and is dropped.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+_BN_PARAMS = ("gamma_rr", "gamma_ri", "gamma_ii", "beta_r", "beta_i")
+_BN_STATS = {"mean_r": "running_mean_real", "mean_i": "running_mean_imag",
+             "Vrr": "Vrr", "Vri": "Vri", "Vii": "Vii"}
+_CONV_PERM = (3, 2, 0, 1)   # (kh, kw, Ci, Co) -> (Co, Ci, kh, kw)
+_TCONV_PERM = (2, 3, 0, 1)  # (kh, kw, Ci, Co) -> (Ci, Co, kh, kw)
+
+
+def _dense(out: dict, prefix: str, p: dict) -> None:
+    out[f"{prefix}.linear_read.weight"] = np.asarray(p["wr"]).T
+    out[f"{prefix}.linear_imag.weight"] = np.asarray(p["wi"]).T
+    out[f"{prefix}.linear_read.bias"] = p["br"]
+    out[f"{prefix}.linear_imag.bias"] = p["bi"]
+
+
+def _stages(out: dict, prefix: str, params: list, stats: list,
+            transposed: bool) -> None:
+    conv, re, im, perm = (("transconv", "tconv_re", "tconv_im", _TCONV_PERM)
+                          if transposed else
+                          ("conv", "conv_re", "conv_im", _CONV_PERM))
+    for i, (p, s) in enumerate(zip(params, stats)):
+        pre = f"{prefix}.{i}"
+        c = p["conv"]
+        out[f"{pre}.{conv}.{re}.weight"] = np.transpose(c["wr"], perm)
+        out[f"{pre}.{conv}.{im}.weight"] = np.transpose(c["wi"], perm)
+        out[f"{pre}.{conv}.{re}.bias"] = c["br"]
+        out[f"{pre}.{conv}.{im}.bias"] = c["bi"]
+        for k in _BN_PARAMS:
+            out[f"{pre}.bn.{k}"] = p["bn"][k]
+        for k, name in _BN_STATS.items():
+            out[f"{pre}.bn.{name}"] = s[k]
+        out[f"{pre}.prelu.weight"] = p["prelu"]
+
+
+def _lstm(out: dict, prefix: str, p: dict) -> None:
+    for part in ("re", "im"):
+        for k, layer in enumerate(p[part]):
+            pre = f"{prefix}.lstm_{part}"
+            out[f"{pre}.weight_ih_l{k}"] = np.asarray(layer["w_ih"]).T
+            out[f"{pre}.weight_hh_l{k}"] = np.asarray(layer["w_hh"]).T
+            out[f"{pre}.bias_ih_l{k}"] = layer["b_ih"]
+            out[f"{pre}.bias_hh_l{k}"] = layer["b_hh"]
+
+
+def jax_to_state_dict(variables: dict) -> Dict[str, np.ndarray]:
+    """JAX {"params", "stats"} tree -> arrays under the port's names."""
+    params, stats = variables["params"], variables["stats"]
+    out: Dict[str, np.ndarray] = {}
+    if "encoder" in params:
+        _stages(out, "encoders", params["encoder"], stats["encoder"], False)
+    if "decoder" in params:
+        _stages(out, "decoders", params["decoder"], stats["decoder"], True)
+    if "lstm" in params:
+        _lstm(out, "lstms.0", params["lstm"])
+    if "dense" in params:
+        _dense(out, "dense", params["dense"])
+    for group in ("speech", "noise"):
+        for head, p in params.get(f"{group}_heads", {}).items():
+            _dense(out, f"{group}_dense_{head}", p)
+    return {k: np.ascontiguousarray(v, np.float32) for k, v in out.items()}
+
+
+def load_jax_variables(module: nn.Module, variables: dict) -> nn.Module:
+    """Fill `module`'s parameters and buffers from JAX variables, in place.
+
+    Every parameter and persistent buffer must be covered and every
+    array must fit its tensor's size; leaves are reshaped to the port's
+    shapes (BN statistics (C,) -> (1, C, 1, 1), PReLU () -> (1,)).
+    """
+    arrays = jax_to_state_dict(variables)
+    target = module.state_dict()
+    missing = sorted(set(target) - set(arrays))
+    extra = sorted(set(arrays) - set(target))
+    if missing or extra:
+        raise KeyError(f"JAX variables do not match {type(module).__name__}: "
+                       f"missing {missing}, unexpected {extra}")
+    loaded = {}
+    for name, arr in arrays.items():
+        shape = target[name].shape
+        if arr.size != target[name].numel():
+            raise ValueError(f"{name}: JAX leaf of shape {arr.shape} does "
+                             f"not fit {tuple(shape)}")
+        loaded[name] = torch.tensor(arr).reshape(shape)
+    module.load_state_dict(loaded, strict=True)
+    return module

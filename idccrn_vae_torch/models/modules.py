@@ -1,0 +1,328 @@
+"""Shared DCCRN building blocks: parameter modules and the stage stacks.
+
+Mirrors `idccrn_vae_tpu/models/modules.py` (encoder/decoder stages of
+conv -> complex BN -> PReLU, the bottleneck reshapes, datanorm and the
+mask reconstruction) in cpack layout (B, F, T, 2C).
+
+The parameter modules carry the reference's state_dict names
+(``encoders.{i}.conv.conv_re.weight``, ``encoders.{i}.bn.Vrr``,
+``lstms.0.lstm_re.weight_ih_l{k}``, ``dense.linear_read.weight``,
+``decoders.{i}.transconv.tconv_re.weight``, ...) and torch's weight
+layouts, so reference checkpoints load as they are and the JAX
+package's `torch_import` reads a port state_dict back into JAX
+variables. Their initialisation follows the JAX package's init
+functions (fan-in uniform bounds, gamma_ri ~ N(0, 1), PReLU 0.25),
+drawn from an explicit CPU `torch.Generator` so that one seed gives the
+same weights on every device.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from idccrn_vae_torch.models.config import (
+    DccrnConfig,
+    decoder_plan,
+    encoder_plan,
+)
+from idccrn_vae_torch.ops.batchnorm import complex_batch_norm
+from idccrn_vae_torch.ops.conv import complex_conv2d, complex_conv_transpose2d
+from idccrn_vae_torch.ops.dense import complex_dense
+from idccrn_vae_torch.ops.lstm import complex_lstm
+
+
+def default_generator(generator: Optional[torch.Generator]) -> torch.Generator:
+    """The CPU generator that initialises weights (seed 0 by default)."""
+    return generator if generator is not None else torch.Generator(
+    ).manual_seed(0)
+
+
+def _uniform(shape, fan_in: int, gen: torch.Generator) -> nn.Parameter:
+    bound = 1.0 / math.sqrt(fan_in)
+    w = torch.rand(shape, generator=gen) * (2 * bound) - bound
+    return nn.Parameter(w)
+
+
+class WeightBias(nn.Module):
+    """One real conv / linear's weight and bias (never called itself)."""
+
+    def __init__(self, w_shape, b_shape, fan_in: int, gen: torch.Generator):
+        super().__init__()
+        self.weight = _uniform(w_shape, fan_in, gen)
+        self.bias = _uniform(b_shape, fan_in, gen)
+
+
+class ComplexConv2d(nn.Module):
+    def __init__(self, cin: int, cout: int, kernel: Sequence[int],
+                 gen: torch.Generator):
+        super().__init__()
+        kh, kw = kernel
+        fan_in = cin * kh * kw
+        self.conv_re = WeightBias((cout, cin, kh, kw), (cout,), fan_in, gen)
+        self.conv_im = WeightBias((cout, cin, kh, kw), (cout,), fan_in, gen)
+
+
+class ComplexConvTranspose2d(nn.Module):
+    def __init__(self, cin: int, cout: int, kernel: Sequence[int],
+                 gen: torch.Generator):
+        super().__init__()
+        kh, kw = kernel
+        fan_in = cout * kh * kw  # torch ConvTranspose2d convention
+        self.tconv_re = WeightBias((cin, cout, kh, kw), (cout,), fan_in, gen)
+        self.tconv_im = WeightBias((cin, cout, kh, kw), (cout,), fan_in, gen)
+
+
+class ComplexBatchNorm(nn.Module):
+    """Complex BN parameters and running statistics (eval path only)."""
+
+    def __init__(self, channels: int, gen: torch.Generator):
+        super().__init__()
+        c = channels
+        self.gamma_rr = nn.Parameter(torch.ones(c))
+        self.gamma_ri = nn.Parameter(torch.randn(c, generator=gen))
+        self.gamma_ii = nn.Parameter(torch.ones(c))
+        self.beta_r = nn.Parameter(torch.zeros(c))
+        self.beta_i = nn.Parameter(torch.zeros(c))
+        # (1, C, 1, 1): the reference's buffer shape
+        self.register_buffer("running_mean_real", torch.zeros(1, c, 1, 1))
+        self.register_buffer("running_mean_imag", torch.zeros(1, c, 1, 1))
+        self.register_buffer("Vrr", torch.ones(1, c, 1, 1))
+        self.register_buffer("Vri", torch.zeros(1, c, 1, 1))
+        self.register_buffer("Vii", torch.ones(1, c, 1, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        params = {k: getattr(self, k) for k in
+                  ("gamma_rr", "gamma_ri", "gamma_ii", "beta_r", "beta_i")}
+        stats = {"mean_r": self.running_mean_real,
+                 "mean_i": self.running_mean_imag,
+                 "Vrr": self.Vrr, "Vri": self.Vri, "Vii": self.Vii}
+        return complex_batch_norm(x, params, stats, train=self.training)
+
+
+class EncoderStage(nn.Module):
+    def __init__(self, cin: int, cout: int, cfg: DccrnConfig,
+                 gen: torch.Generator):
+        super().__init__()
+        self.conv = ComplexConv2d(cin, cout, cfg.kernel, gen)
+        self.bn = ComplexBatchNorm(cout, gen)
+        self.prelu = nn.PReLU()
+
+
+class DecoderStage(nn.Module):
+    def __init__(self, cin: int, cout: int, cfg: DccrnConfig,
+                 gen: torch.Generator):
+        super().__init__()
+        self.transconv = ComplexConvTranspose2d(cin, cout, cfg.kernel, gen)
+        self.bn = ComplexBatchNorm(cout, gen)
+        self.prelu = nn.PReLU()
+
+
+class LstmWeights(nn.Module):
+    """torch nn.LSTM's parameters and names, without its cuDNN kernel."""
+
+    def __init__(self, input_size: int, hidden: int, num_layers: int,
+                 gen: torch.Generator):
+        super().__init__()
+        self.num_layers = num_layers
+        for k in range(num_layers):
+            in_sz = input_size if k == 0 else hidden
+            for name, shape in (("weight_ih", (4 * hidden, in_sz)),
+                                ("weight_hh", (4 * hidden, hidden)),
+                                ("bias_ih", (4 * hidden,)),
+                                ("bias_hh", (4 * hidden,))):
+                self.register_parameter(f"{name}_l{k}",
+                                        _uniform(shape, hidden, gen))
+
+    def layers(self) -> List[dict]:
+        return [{"w_ih": getattr(self, f"weight_ih_l{k}"),
+                 "w_hh": getattr(self, f"weight_hh_l{k}"),
+                 "b_ih": getattr(self, f"bias_ih_l{k}"),
+                 "b_hh": getattr(self, f"bias_hh_l{k}")}
+                for k in range(self.num_layers)]
+
+
+class ComplexLSTM(nn.Module):
+    def __init__(self, input_size: int, hidden: int, num_layers: int,
+                 gen: torch.Generator):
+        super().__init__()
+        self.lstm_re = LstmWeights(input_size, hidden, num_layers, gen)
+        self.lstm_im = LstmWeights(input_size, hidden, num_layers, gen)
+
+    def forward(self, x, compute_dtype=None, state=None,
+                return_state: bool = False):
+        params = {"re": self.lstm_re.layers(), "im": self.lstm_im.layers()}
+        return complex_lstm(x, params, compute_dtype=compute_dtype,
+                            state=state, return_state=return_state)
+
+
+class ComplexDense(nn.Module):
+    def __init__(self, cin: int, cout: int, gen: torch.Generator):
+        super().__init__()
+        self.linear_read = WeightBias((cout, cin), (cout,), cin, gen)
+        self.linear_imag = WeightBias((cout, cin), (cout,), cin, gen)
+
+    def forward(self, x, compute_dtype=None):
+        return complex_dense(x, self.linear_read.weight,
+                             self.linear_imag.weight, self.linear_read.bias,
+                             self.linear_imag.bias, compute_dtype)
+
+
+def build_encoder_stages(cfg: DccrnConfig, gen) -> nn.ModuleList:
+    return nn.ModuleList(EncoderStage(cin, cout, cfg, gen)
+                         for cin, cout in encoder_plan(cfg))
+
+
+def build_decoder_stages(cfg: DccrnConfig, gen) -> nn.ModuleList:
+    return nn.ModuleList(DecoderStage(cin, cout, cfg, gen)
+                         for cin, cout in decoder_plan(cfg))
+
+
+def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Single-shared-alpha PReLU; alpha is cast to x's dtype so bf16
+    activations stay bf16 (the JAX package does the same)."""
+    return F.prelu(x, alpha.reshape(1).to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# encoder / decoder stacks
+# ---------------------------------------------------------------------------
+
+
+def apply_encoder_stack(stages: Sequence[EncoderStage], x: torch.Tensor,
+                        cfg: DccrnConfig) -> Tuple[torch.Tensor, list]:
+    """x: (B, F, T, 2*Cin) -> (bottleneck, skips list)."""
+    time_pad = 1 if cfg.causal else 0
+    cdt = cfg.compute_dtype
+    skips = []
+    for st in stages:
+        c = st.conv
+        x = complex_conv2d(x, c.conv_re.weight, c.conv_im.weight,
+                           c.conv_re.bias, c.conv_im.bias, cfg.stride,
+                           (cfg.freq_pad, time_pad), causal=cfg.causal,
+                           compute_dtype=cdt)
+        x = prelu(st.bn(x), st.prelu.weight)
+        skips.append(x)
+    return x, skips
+
+
+def cpack_concat(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Channel-concat two cpack maps: [a_re, b_re, a_im, b_im]."""
+    ca, cb = a.shape[-1] // 2, b.shape[-1] // 2
+    return torch.cat([a[..., :ca], b[..., :cb], a[..., ca:], b[..., cb:]],
+                     dim=-1)
+
+
+def _skip_kind(cfg: DccrnConfig, i: int, num_samples: int,
+               pad_mode: str) -> str:
+    """Eval-time skip handling of decoder stage i:
+      'none'   — the stage has no skip channels
+      'zero'   — skip channels are zeros: their conv adds nothing
+      'shared' — the skip is identical across the S samples: its conv
+                 runs once at batch B and the result is repeated
+      'full'   — the skip already matches x's batch (S == 1)
+    skip_mode 'prob' uses real skips at eval, as in the JAX package.
+    """
+    if cfg.skip_mode == "none" or i not in cfg.skip_to_use:
+        return "none"
+    if cfg.skip_mode == "zero" or (cfg.skip_mode == "runtime"
+                                   and pad_mode == "zero"):
+        return "zero"
+    return "shared" if num_samples > 1 else "full"
+
+
+def apply_decoder_stack(stages: Sequence[DecoderStage], x: torch.Tensor,
+                        skips: Sequence[torch.Tensor], cfg: DccrnConfig,
+                        num_samples: int = 1,
+                        pad_mode: str = "sig") -> torch.Tensor:
+    """Eval-mode decoder: x (B*S, F_bottleneck, T, 2C) -> (B*S, F0, T', 2).
+
+    The skip concat cat([x, skip]) @ W runs as x @ W[:Cx] + skip @ W[Cx:]
+    (two summed transposed convs), so the concatenated map is never
+    materialised; W[Cx:] are the weight rows of the skip's channels.
+    """
+    n = cfg.num_stages
+    cdt = cfg.compute_dtype
+
+    def tconv(inp, wr, wi, br=None, bi=None):
+        return complex_conv_transpose2d(inp, wr, wi, br, bi, cfg.stride,
+                                        (cfg.freq_pad, 0), causal=cfg.causal,
+                                        compute_dtype=cdt)
+
+    for i, st in enumerate(stages):
+        t = st.transconv
+        wr, wi = t.tconv_re.weight, t.tconv_im.weight
+        br, bi = t.tconv_re.bias, t.tconv_im.bias
+        kind = _skip_kind(cfg, i, num_samples, pad_mode)
+        if kind == "none":
+            y = tconv(x, wr, wi, br, bi)
+        else:
+            cx = x.shape[-1] // 2
+            y = tconv(x, wr[:cx], wi[:cx], br, bi)
+            skip = skips[n - 1 - i]
+            if kind == "shared":
+                ys = tconv(skip, wr[cx:], wi[cx:])
+                y = y + ys.repeat_interleave(num_samples, dim=0)
+            elif kind == "full":
+                y = y + tconv(skip, wr[cx:], wi[cx:])
+        x = prelu(st.bn(y), st.prelu.weight)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# bottleneck reshapes (the reference's C-major CF flattening)
+# ---------------------------------------------------------------------------
+
+
+def flatten_bottleneck(x: torch.Tensor) -> torch.Tensor:
+    """(B, F, T, 2C) cpack -> (B, T, 2*C*F) cpack sequence, index c*F + f
+    (reshape(B, C*F, T) of the reference's (B, C, F, T) maps)."""
+    b, f, t, c2 = x.shape
+    c = c2 // 2
+    return x.reshape(b, f, t, 2, c).permute(0, 2, 3, 4, 1).reshape(
+        b, t, 2 * c * f)
+
+
+def unflatten_bottleneck(x: torch.Tensor, c: int, f: int) -> torch.Tensor:
+    """(B, T, 2*C*F) cpack sequence -> (B, F, T, 2C) cpack map."""
+    b, t, _ = x.shape
+    return x.reshape(b, t, 2, c, f).permute(0, 4, 1, 2, 3).reshape(
+        b, f, t, 2 * c)
+
+
+# ---------------------------------------------------------------------------
+# spectrogram normalization + mask reconstruction
+# ---------------------------------------------------------------------------
+
+
+def apply_datanorm(stft_x: torch.Tensor, mean: torch.Tensor,
+                   std: torch.Tensor) -> torch.Tensor:
+    """Per-bin mean/std normalization, zeroing imag at DC and Nyquist.
+    stft_x: (B, F, T, 2); mean/std: (F, 2)."""
+    out = (stft_x - mean[None, :, None, :]) / (std[None, :, None, :] + 1e-6)
+    out[:, 0, :, 1] = 0.0
+    out[:, -1, :, 1] = 0.0
+    return out
+
+
+def undo_datanorm(spec: torch.Tensor, mean: torch.Tensor,
+                  std: torch.Tensor) -> torch.Tensor:
+    return std[None, :, None, :] * spec + mean[None, :, None, :]
+
+
+def mask_reconstruct(mask: torch.Tensor, stft_x: torch.Tensor) -> torch.Tensor:
+    """Polar bounded-magnitude mask: |Y| = |X| tanh(|M|), angle(Y) =
+    angle(X) + angle(M). mask, stft_x: (B, F, T, 2)."""
+    bounded = torch.tanh(torch.sqrt(mask[..., 0] ** 2 + mask[..., 1] ** 2))
+    mask_phase = torch.atan2(mask[..., 1] / (bounded + 1e-8),
+                             mask[..., 0] / (bounded + 1e-8))
+    in_mag = torch.sqrt(stft_x[..., 0] ** 2 + stft_x[..., 1] ** 2)
+    in_phase = torch.atan2(stft_x[..., 1], stft_x[..., 0])
+    out_mag = in_mag * bounded
+    phase = in_phase + mask_phase
+    return torch.stack([out_mag * torch.cos(phase),
+                        out_mag * torch.sin(phase)], dim=-1)

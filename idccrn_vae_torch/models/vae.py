@@ -1,0 +1,130 @@
+"""VAE decoder and the latent heads shared with the NSVAE encoder.
+
+Mirrors `idccrn_vae_tpu/models/vae.py`: `parse_sliced_head`,
+`apply_fc_head`, `VaeDecoder` and `finish_reconstruction`. The decoder
+returns ``(recon_sig, predict_spec)`` like the reference's
+pvae_dccrn_decoder.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from idccrn_vae_torch.device import DeviceLike, resolve_device
+from idccrn_vae_torch.models.config import DccrnConfig, bottleneck_dims
+from idccrn_vae_torch.models.modules import (
+    ComplexDense,
+    apply_decoder_stack,
+    build_decoder_stages,
+    default_generator,
+    mask_reconstruct,
+    undo_datanorm,
+    unflatten_bottleneck,
+)
+from idccrn_vae_torch.models.reparam import CGauss
+from idccrn_vae_torch.ops.stft import istft, stft
+
+
+def parse_sliced_head(lstm_out: torch.Tensor, zdim: int,
+                      offset: int = 0) -> CGauss:
+    """Slice (mu, log_sigma, delta) from a 3*zdim (or 6*zdim) cpack
+    sequence; offset in zdim units selects the speech (0) or noise (3)
+    triplet of a dual-latent head."""
+    h = lstm_out.shape[-1] // 2
+    re, im = lstm_out[..., :h], lstm_out[..., h:]
+    o = offset * zdim
+    return CGauss(
+        mu_r=re[..., o : o + zdim],
+        mu_i=im[..., o : o + zdim],
+        log_sigma=re[..., o + zdim : o + 2 * zdim],
+        log_sigma_i=im[..., o + zdim : o + 2 * zdim],
+        delta_r=re[..., o + 2 * zdim : o + 3 * zdim],
+        delta_i=im[..., o + 2 * zdim : o + 3 * zdim],
+    )
+
+
+def apply_fc_head(lstm_out: torch.Tensor,
+                  heads: Dict[str, ComplexDense]) -> CGauss:
+    """Three ComplexDense heads (mean, logvar, delta) of the fc-latent
+    family."""
+    mu = heads["mean"](lstm_out)
+    ls = heads["logvar"](lstm_out)
+    dl = heads["delta"](lstm_out)
+    z = mu.shape[-1] // 2
+    return CGauss(
+        mu_r=mu[..., :z], mu_i=mu[..., z:],
+        log_sigma=ls[..., :z], log_sigma_i=ls[..., z:],
+        delta_r=dl[..., :z], delta_i=dl[..., z:],
+    )
+
+
+class VaeDecoder(nn.Module):
+    """Pretrain VAE decoder, eval mode; skip handling per cfg.skip_mode.
+
+    Weights are drawn on the CPU from `generator` and moved to `device`
+    (CUDA unless the caller asks for another device).
+    """
+
+    def __init__(self, cfg: DccrnConfig,
+                 datanorm: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        cfg.compute_dtype  # rejects compute modes the port lacks
+        gen = default_generator(generator)
+        self.cfg = cfg
+        c, f = bottleneck_dims(cfg)
+        self.dense = ComplexDense(cfg.zdim, c * f, gen)
+        self.decoders = build_decoder_stages(cfg, gen)
+        # per-bin (F, 2) mean/std; not in the reference's state_dict
+        mean, std = (None, None) if datanorm is None else (
+            torch.as_tensor(d, dtype=torch.float32) for d in datanorm)
+        self.register_buffer("dn_mean", mean, persistent=False)
+        self.register_buffer("dn_std", std, persistent=False)
+        self.eval()
+        self.to(device)
+
+    def forward(self, stft_x: torch.Tensor, z: torch.Tensor, skips,
+                num_samples: Optional[int] = None, pad_mode: str = "sig"):
+        """Returns (recon_sig (B*S, L), predict_spec (B*S, F, T, 2)).
+
+        dense -> unflatten -> transposed-conv stack (skips shared over
+        the samples) -> recon_type branch -> ISTFT.
+        """
+        cfg = self.cfg
+        ns = cfg.num_samples if num_samples is None else num_samples
+        c, f = bottleneck_dims(cfg)
+        dense_out = self.dense(
+            z, compute_dtype=None if cfg.compute == "f32"
+            else cfg.compute_dtype)  # (B*S, T, 2*C*F) float32
+        p = unflatten_bottleneck(dense_out, c, f)
+        out = apply_decoder_stack(self.decoders, p, skips, cfg,
+                                  num_samples=ns, pad_mode=pad_mode)
+        datanorm = (None if self.dn_mean is None
+                    else (self.dn_mean, self.dn_std))
+        return finish_reconstruction(out, stft_x, cfg, ns, datanorm)
+
+
+def finish_reconstruction(out: torch.Tensor, stft_x: torch.Tensor,
+                          cfg: DccrnConfig, num_samples: int, datanorm):
+    """recon_type branch + datanorm undo + ISTFT (+ resynthesis).
+
+    out: decoder output (B*S, F, T, 2); stft_x: (B, F, T, 2).
+    """
+    s = cfg.stft
+    out = out.float()  # leave reduced precision at the edge
+    if cfg.recon_type == "mask":
+        tiled = stft_x.repeat_interleave(num_samples, dim=0)
+        predict = mask_reconstruct(out, tiled)
+    else:  # 'real_imag'
+        predict = out
+    if datanorm is not None:
+        predict = undo_datanorm(predict, datanorm[0], datanorm[1])
+    recon_sig = istft(predict, s.n_fft, s.hop, s.win_length)
+    if cfg.resynthesis:
+        predict = stft(recon_sig, s.n_fft, s.hop, s.win_length)
+    return recon_sig, predict

@@ -1,0 +1,104 @@
+"""STFT / ISTFT with torch.stft/istft semantics, on cuFFT.
+
+Mirrors `idccrn_vae_tpu/ops/stft.py`:
+
+  * center=True reflect padding of n_fft//2 samples on both sides,
+  * the periodic win_length Hann window zero-padded centred to n_fft,
+  * frame count ``1 + L // hop``,
+  * ISTFT overlap-add divided by the squared-window envelope, clamped at
+    1e-11 so that a `length` past the frames' coverage gives zeros where
+    torch.istft would raise (the envelope is 0 there).
+
+Spectra are (B, F, T, 2) real/imag, the JAX package's layout.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+@functools.lru_cache(maxsize=16)
+def _padded_hann(win_length: int, n_fft: int, device: torch.device,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """Periodic Hann of win_length, zero-padded centred to n_fft.
+
+    Built in float64 on the host and cast once; cached per device and
+    dtype. The cached tensor is shared, so callers never write to it.
+    """
+    n = np.arange(win_length)
+    w = 0.5 * (1.0 - np.cos(2.0 * np.pi * n / win_length))
+    left = (n_fft - win_length) // 2
+    out = np.zeros(n_fft, dtype=np.float64)
+    out[left : left + win_length] = w
+    return torch.as_tensor(out, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=16)
+def _ola_envelope(frames: int, n_fft: int, hop: int, win_length: int,
+                  device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """Overlap-added squared window over `frames` frames, (cover,)."""
+    window = _padded_hann(win_length, n_fft, device, dtype)
+    return _overlap_add((window * window).expand(1, frames, n_fft), hop)[0]
+
+
+def _overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
+    """(B, T, n) frames -> (B, (T - 1) * hop + n) summed signal."""
+    b, t, n = frames.shape
+    cover = (t - 1) * hop + n
+    out = F.fold(frames.transpose(1, 2), output_size=(1, cover),
+                 kernel_size=(1, n), stride=(1, hop))
+    return out.view(b, cover)
+
+
+def stft(signal: torch.Tensor, n_fft: int = 512, hop: int = 100,
+         win_length: int = 400) -> torch.Tensor:
+    """(B, L) or (L,) waveform -> (B, F, T, 2) spectrum, F = n_fft//2 + 1."""
+    squeeze = signal.dim() == 1
+    if squeeze:
+        signal = signal[None]
+    pad = n_fft // 2
+    x = F.pad(signal[:, None], (pad, pad), mode="reflect")[:, 0]
+    frames = x.unfold(-1, n_fft, hop)  # (B, T, n_fft), a view
+    window = _padded_hann(win_length, n_fft, signal.device, signal.dtype)
+    spec = torch.fft.rfft(frames * window, n=n_fft, dim=-1)  # (B, T, F)
+    out = torch.view_as_real(spec).transpose(1, 2).contiguous()
+    out = out.to(signal.dtype)
+    return out[0] if squeeze else out
+
+
+def istft(spec: torch.Tensor, n_fft: int = 512, hop: int = 100,
+          win_length: int = 400, length: Optional[int] = None) -> torch.Tensor:
+    """(B, F, T, 2) or (F, T, 2) spectrum -> (B, length) waveform.
+
+    length defaults to (T - 1) * hop like torch.istft.
+    """
+    squeeze = spec.dim() == 3
+    if squeeze:
+        spec = spec[None]
+    dtype = spec.dtype
+    b, _, t, _ = spec.shape
+    window = _padded_hann(win_length, n_fft, spec.device, dtype)
+    cplx = torch.view_as_complex(spec.contiguous()).transpose(1, 2)
+    frames = torch.fft.irfft(cplx, n=n_fft, dim=-1).to(dtype) * window
+
+    pad = n_fft // 2
+    if length is None:
+        length = (t - 1) * hop
+    full = length + 2 * pad
+    sig = _overlap_add(frames, hop)
+    env = _ola_envelope(t, n_fft, hop, win_length, spec.device, dtype)
+    cover = sig.shape[-1]
+    if full > cover:
+        # past the last frame's span both are 0: the clamp below turns
+        # 0/0 into 0, as the JAX package does
+        sig = F.pad(sig, (0, full - cover))
+        env = F.pad(env, (0, full - cover))
+    sig = sig[:, pad : pad + length]
+    env = env[pad : pad + length]
+    out = sig / env.clamp_min(1e-11)
+    return out[0] if squeeze else out

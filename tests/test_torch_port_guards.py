@@ -1,0 +1,123 @@
+"""Guards around the port: it imports neither JAX nor the JAX package, it
+never drifts to the CPU on its own, `chip_smoke.py` refuses to run
+without a card, and the weight bridge round-trips through the JAX
+package's checkpoint importer."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from idccrn_vae_tpu.models import torch_import
+from idccrn_vae_tpu.models.nsvae import NsvaeEncoder as JaxEncoder
+from idccrn_vae_tpu.models.vae import VaeDecoder as JaxDecoder
+from idccrn_vae_torch.eval.enhance import Enhancer
+from idccrn_vae_torch.models.from_jax import load_jax_variables
+from idccrn_vae_torch.models.nsvae import NsvaeEncoder
+from idccrn_vae_torch.models.vae import VaeDecoder
+from torch_port_util import configs, np_vars
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import idccrn_vae_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "idccrn_vae_tpu"))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def _run(args, cwd, **env):
+    return subprocess.run([sys.executable, *args], cwd=cwd, text=True,
+                          capture_output=True, timeout=120,
+                          env={**os.environ, **env})
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    r = _run(["-c", _IMPORT_ALL], ROOT)
+    assert r.returncode == 0, r.stdout + r.stderr
+    count, bad = r.stdout.split(maxsplit=1)
+    assert int(count) >= 15 and bad.strip() == "[]"
+
+
+def test_chip_smoke_fails_without_a_card():
+    r = _run(["chip_smoke.py"], ROOT, CUDA_VISIBLE_DEVICES="")
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+
+
+def test_chip_smoke_fails_without_the_repo(tmp_path):
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    r = _run(["chip_smoke.py"], tmp_path, PYTHONPATH="")
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+
+
+def test_entry_points_default_to_cuda_and_do_not_fall_back():
+    assert not torch.cuda.is_available()
+    _, tc = configs()
+    enc = NsvaeEncoder(tc, device="cpu").state_dict()
+    dec = VaeDecoder(tc, device="cpu").state_dict()
+    for build in (lambda: NsvaeEncoder(tc), lambda: VaeDecoder(tc),
+                  lambda: Enhancer(tc, tc, enc, dec)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+
+
+def _assert_tree_equal(got, want, path=""):
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            _assert_tree_equal(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_tree_equal(g, w, f"{path}/{i}")
+    else:
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want),
+                                      err_msg=path)
+
+
+@pytest.mark.parametrize("extra", [
+    {},
+    {"latent": "fc", "latent_num": 2, "channel_mode": "double"},
+])
+def test_bridge_round_trips_through_torch_import(extra):
+    """JAX vars -> load_jax_variables -> port state_dict ->
+    torch_import -> the same arrays, exactly. The one exception is the BN
+    step counter: the port has no counterpart, and the importer sets it
+    to 1 (a trained checkpoint's running stats are live), where `.init`
+    gives 0."""
+    jc, tc = configs(**extra)
+    for jax_model, port_model, importer in (
+            (JaxEncoder, NsvaeEncoder, torch_import.import_nsvae_encoder),
+            (JaxDecoder, VaeDecoder, torch_import.import_vae_decoder)):
+        variables = np_vars(jax_model(jc).init(jax.random.PRNGKey(3)))
+        module = load_jax_variables(port_model(tc, device="cpu"), variables)
+        sd = {k: v.numpy() for k, v in module.state_dict().items()}
+        back = np_vars(importer(sd, jc))
+        for stage_stats in next(iter(back["stats"].values())):
+            assert stage_stats.pop("count") == 1
+        for stage_stats in next(iter(variables["stats"].values())):
+            assert stage_stats.pop("count") == 0
+        _assert_tree_equal(back, variables)
+
+
+def test_bridge_rejects_mismatched_variables():
+    jc, tc = configs()
+    variables = np_vars(JaxDecoder(jc).init(jax.random.PRNGKey(0)))
+    with pytest.raises(KeyError, match="missing"):
+        load_jax_variables(NsvaeEncoder(tc, device="cpu"), variables)
+    _, wide = configs(zdim=8)
+    with pytest.raises(ValueError, match="does not fit"):
+        load_jax_variables(VaeDecoder(wide, device="cpu"), variables)

@@ -1,0 +1,107 @@
+"""Shared helpers for the port's parity tests (tests/test_torch_port_*.py).
+
+Both sides get the same inputs, made from a seed with numpy, and the
+same weights: JAX variables from `.init`, loaded into the port through
+`load_jax_variables`.
+
+Tolerances:
+  * f32: atol 1e-4 and rtol 1e-4, the reference oracles' tolerance
+    (tests/oracle_ref.py).
+  * bf16: max |port - jax| <= BF16_REL * max |jax|. The two frameworks
+    round at different points inside a bf16 conv (accumulation order,
+    when the f32 accumulator is rounded), so single elements may differ
+    by a bf16 ulp (2**-8 relative) at each stage; across the network
+    that stays well under 2% of the output's range.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from idccrn_vae_tpu.models.config import DccrnConfig as JaxConfig
+from idccrn_vae_torch.models.config import DccrnConfig as TorchConfig
+
+TINY = dict(encoder_channels=(1, 2, 2, 4, 4, 4, 4), zdim=4, num_samples=1)
+F32_TOL = dict(atol=1e-4, rtol=1e-4)
+BF16_REL = 2e-2
+
+
+def configs(**overrides):
+    """(JAX config, port config) with the same fields, tiny geometry."""
+    fields = dict(TINY, **overrides)
+    return JaxConfig(**fields), TorchConfig(**fields)
+
+
+def np_vars(variables):
+    """JAX variable tree -> numpy leaves."""
+    return jax.tree.map(np.asarray, variables)
+
+
+def to_np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def assert_close(port, ref, compute: str = "f32") -> None:
+    port, ref = to_np(port), to_np(ref)
+    assert port.shape == ref.shape, (port.shape, ref.shape)
+    assert np.isfinite(port).all()
+    if compute == "f32":
+        np.testing.assert_allclose(port, ref, **F32_TOL)
+    else:
+        err = np.abs(port - ref).max()
+        scale = np.abs(ref).max()
+        assert err <= BF16_REL * scale, (err, scale)
+
+
+class NoiseStream:
+    """Identical latent draws for both sides, in call order.
+
+    Each call returns (eps_r, eps_i) of the shape the caller needs,
+    from a numpy generator with a fixed seed; two streams with the same
+    seed hand out the same draws to the JAX and the port side.
+    """
+
+    def __init__(self, seed: int = 123):
+        self.rng = np.random.default_rng(seed)
+
+    def __call__(self, b: int, s: int, t: int, h: int):
+        return tuple(self.rng.standard_normal((b, s, t, h)).astype(np.float32)
+                     for _ in range(2))
+
+
+def patch_jax_noise(monkeypatch, stream: NoiseStream) -> None:
+    """Route the JAX NSVAE encoder's draws through `stream` (test-side
+    patch of the name the encoder module looks up)."""
+    from idccrn_vae_tpu.models.reparam import reparameterize
+
+    def fixed(rng, g, num_samples, guard="eps", noise=None):
+        b, t, h = g.mu_r.shape
+        er, ei = stream(b, num_samples, t, h)
+        return reparameterize(rng, g, num_samples, guard=guard,
+                              noise=(jnp.asarray(er), jnp.asarray(ei)))
+
+    monkeypatch.setattr("idccrn_vae_tpu.models.nsvae.reparameterize", fixed)
+
+
+def patch_port_noise(monkeypatch, stream: NoiseStream) -> None:
+    """Route the port's NSVAE encoder's draws through `stream`."""
+    from idccrn_vae_torch.models.reparam import reparameterize
+
+    def fixed(g, num_samples, guard="eps", noise=None, generator=None):
+        b, t, h = g.mu_r.shape
+        er, ei = stream(b, num_samples, t, h)
+        return reparameterize(g, num_samples, guard=guard,
+                              noise=(torch.from_numpy(er),
+                                     torch.from_numpy(ei)))
+
+    monkeypatch.setattr("idccrn_vae_torch.models.nsvae.reparameterize", fixed)
+
+
+def wav_batch(seed: int, b: int, n: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return (0.1 * rng.standard_normal((b, n))).astype(np.float32)
