@@ -1,14 +1,17 @@
 """Batched enhancement runner — the serving path.
 
-Mirrors `idccrn_vae_tpu/eval/enhance.py` for the speech latent
-(``latent_to_use=1``, ``outtype="clean_direct"``): STFT -> NSVAE noisy
-encoder -> latent sampling -> decoder -> ISTFT -> mean over samples.
-Utterances are sorted by length and padded up to bucket lengths
-(multiples of `bucket_frames` STFT frames), the convention the JAX
-package's eval runners share.
+Mirrors `idccrn_vae_tpu/eval/enhance.py`: STFT -> NSVAE noisy encoder
+-> latent sampling -> decoder(s) -> (out-type combination) -> ISTFT,
+with the mean over samples. Utterances are sorted by length and padded
+up to bucket lengths (multiples of `bucket_frames` STFT frames), the
+convention the JAX package's eval runners share.
 
-Not ported yet (ROADMAP queue 1 item 10): the dual-latent path
-(``latent_to_use=2``), the mask out-types and `encode_latents`.
+Out-types (latent_to_use=2 for all but the first):
+  'clean_direct'    — sample-mean of the speech decoder's waveform
+  'real_imag_mask'  — Wiener-style per-component ratio masks
+  'complex_mask'    — complex ratio S/(S+N)
+  'phase_mask'      — phase-sensitive mask |S|/(|S|+|N|)*cos(dphi)
+                      applied to |Y| with the speech phase
 """
 
 from __future__ import annotations
@@ -22,11 +25,12 @@ from idccrn_vae_torch.device import DeviceLike, resolve_device
 from idccrn_vae_torch.models.config import DccrnConfig
 from idccrn_vae_torch.models.nsvae import NsvaeEncoder, split_noisy_skips
 from idccrn_vae_torch.models.vae import VaeDecoder
+from idccrn_vae_torch.ops.stft import istft
 
 DEFAULT_BUCKET_FRAMES = 100
+OUTTYPES = ("clean_direct", "real_imag_mask", "complex_mask", "phase_mask")
 
-_DUAL_TODO = ("is not ported to idccrn_vae_torch yet (ROADMAP queue 1 "
-              "item 10: dual-latent serving)")
+Eps = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def bucket_pad_length(n_samples: int, hop: int,
@@ -43,12 +47,58 @@ def _sample_mean(x: torch.Tensor, num_samples: int) -> torch.Tensor:
     return x.reshape((-1, num_samples) + tuple(x.shape[1:])).mean(dim=1)
 
 
-class Enhancer:
-    """NSVAE encoder + pretrained/fine-tuned decoder speech enhancer.
+def _complex(spec: torch.Tensor) -> torch.Tensor:
+    return torch.complex(spec[..., 0], spec[..., 1])
 
-    enc_state / dec_state are state_dicts under the reference's names
-    (a port module's `state_dict()`, or a reference checkpoint). The
-    models run on `device`: CUDA unless the caller asks for another.
+
+def _real_imag(c: torch.Tensor) -> torch.Tensor:
+    return torch.stack([c.real, c.imag], dim=-1)
+
+
+def combine_outputs(outtype: str, speech_spec: torch.Tensor,
+                    noise_spec: Optional[torch.Tensor],
+                    noisy_spec: torch.Tensor,
+                    num_samples: int) -> torch.Tensor:
+    """Sample-mean + mask combination -> (B, F, T, 2) estimate.
+
+    speech_spec / noise_spec: decoder spectra (B*S, F, T, 2) float32;
+    noisy_spec: (B, F, T, 2). The masks run in float32 complex; as in
+    the JAX package, the 1e-10 of `complex_mask` is added to the real
+    part of the complex denominator.
+    """
+    s = _sample_mean(speech_spec, num_samples)
+    y = noisy_spec
+    if outtype == "clean_direct" or noise_spec is None:
+        return s
+    n = _sample_mean(noise_spec, num_samples)
+    if outtype == "real_imag_mask":
+        rm = s[..., 0] ** 2 / (s[..., 0] ** 2 + n[..., 0] ** 2 + 1e-10)
+        im = s[..., 1] ** 2 / (s[..., 1] ** 2 + n[..., 1] ** 2 + 1e-10)
+        return torch.stack([rm * y[..., 0], im * y[..., 1]], dim=-1)
+    sc, nc, yc = _complex(s), _complex(n), _complex(y)
+    if outtype == "complex_mask":
+        return _real_imag(sc / (sc + nc + 1e-10) * yc)
+    if outtype == "phase_mask":
+        s_mag, s_ph = sc.abs(), sc.angle()
+        mask = (s_mag / (s_mag + nc.abs() + 1e-10)
+                * torch.cos(s_ph - yc.angle()))
+        return _real_imag(mask * yc.abs() * torch.exp(1j * s_ph))
+    raise ValueError(f"unknown outtype {outtype}")
+
+
+class Enhancer:
+    """NSVAE encoder + pretrained/fine-tuned decoder(s) speech enhancer.
+
+    enc_state / dec_state / noise_dec_state are state_dicts under the
+    reference's names (a port module's `state_dict()`, or a reference
+    checkpoint). The models run on `device`: CUDA unless the caller asks
+    for another.
+
+    latent_to_use=1 decodes the speech latent only (outtype must be
+    'clean_direct'); 2 needs a dual-latent encoder (latent_num=2) and the
+    noise decoder's weights, and outtype picks the mask combination.
+    'clean_direct' with latent_to_use=2 returns the speech decode and
+    skips the noise decoder, whose output it would discard.
 
     sample_chunks: decode num_samples in this many sequential chunks
     instead of one B*S batch — same outputs, peak decoder memory divided
@@ -58,6 +108,7 @@ class Enhancer:
     def __init__(self, enc_cfg: DccrnConfig, dec_cfg: DccrnConfig,
                  enc_state: Mapping[str, torch.Tensor],
                  dec_state: Mapping[str, torch.Tensor],
+                 noise_dec_state: Optional[Mapping[str, torch.Tensor]] = None,
                  num_samples: int = 10, outtype: str = "clean_direct",
                  latent_to_use: int = 1, pad_mode: str = "sig",
                  bucket_frames: int = DEFAULT_BUCKET_FRAMES,
@@ -65,10 +116,19 @@ class Enhancer:
         if latent_to_use not in (1, 2):
             raise ValueError(f"latent_to_use must be 1 or 2, got "
                              f"{latent_to_use}")
+        if outtype not in OUTTYPES:
+            raise ValueError(f"unknown outtype {outtype!r}; one of {OUTTYPES}")
+        if latent_to_use == 1 and outtype != "clean_direct":
+            raise ValueError(f"outtype={outtype!r} needs the noise latent: "
+                             "pass latent_to_use=2")
         if latent_to_use == 2:
-            raise NotImplementedError(f"latent_to_use=2 {_DUAL_TODO}")
-        if outtype != "clean_direct":
-            raise NotImplementedError(f"outtype={outtype!r} {_DUAL_TODO}")
+            if enc_cfg.latent_num != 2:
+                raise ValueError(
+                    "latent_to_use=2 requires a dual-latent encoder "
+                    f"(enc_cfg.latent_num={enc_cfg.latent_num})")
+            if noise_dec_state is None:
+                raise ValueError(
+                    "latent_to_use=2 requires noise decoder weights")
         if sample_chunks < 1 or num_samples % sample_chunks:
             raise ValueError(f"sample_chunks={sample_chunks} must divide "
                              f"num_samples={num_samples}")
@@ -79,7 +139,12 @@ class Enhancer:
         self.encoder.load_state_dict(enc_state)
         self.decoder = VaeDecoder(dec_cfg, device=self.device)
         self.decoder.load_state_dict(dec_state)
+        self.noise_decoder = None
+        if latent_to_use == 2:
+            self.noise_decoder = VaeDecoder(dec_cfg, device=self.device)
+            self.noise_decoder.load_state_dict(noise_dec_state)
         self.num_samples = num_samples
+        self.outtype = outtype
         self.pad_mode = pad_mode
         self.bucket_frames = bucket_frames
         self.sample_chunks = sample_chunks
@@ -90,37 +155,78 @@ class Enhancer:
     @torch.inference_mode()
     def forward(self, wav: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                ) -> torch.Tensor:
+                noise: Eps = None, noise_n: Eps = None) -> torch.Tensor:
         """The enhancement program: (B, L) -> (B, (T - 1) * hop).
 
-        noise: optional (eps_r, eps_i) for the latent draws, each
-        (B, num_samples, T, zdim); otherwise they come from `generator`.
+        noise / noise_n: optional (eps_r, eps_i) for the speech / the
+        noise latent's draws, each (B, num_samples, T, zdim); a latent
+        without one draws from `generator`.
         """
+        s = self.enc_cfg.stft
         ns, chunks = self.num_samples, self.sample_chunks
         out = self.encoder(wav, num_samples=ns, generator=generator,
-                           noise=noise)
+                           noise=noise, noise_n=noise_n)
         skips = split_noisy_skips(out.skips, self.enc_cfg, "speech")
+        direct = self.outtype == "clean_direct"
+        nskips = (None if direct else
+                  split_noisy_skips(out.skips, self.enc_cfg, "noise"))
+
+        def speech(z, samples):
+            return self.decoder(out.stft_x, z, skips, num_samples=samples,
+                                pad_mode=self.pad_mode)
+
+        def noise_spec(z, samples):
+            return self.noise_decoder(out.stft_x, z, nskips,
+                                      num_samples=samples,
+                                      pad_mode=self.pad_mode)[1]
+
         if chunks == 1:
-            recon, _ = self.decoder(out.stft_x, out.z_speech, skips,
-                                    num_samples=ns, pad_mode=self.pad_mode)
-            return _sample_mean(recon, ns)
+            recon, pred_s = speech(out.z_speech, ns)
+            if direct:
+                return _sample_mean(recon, ns)
+            est = combine_outputs(self.outtype, pred_s,
+                                  noise_spec(out.z_noise, ns), out.stft_x, ns)
+            return istft(est, s.n_fft, s.hop, s.win_length)
         # rows are batch-major, sample-minor: (B*S, ...) -> (B, S, ...);
         # equal chunk sizes, so the mean of chunk means is the full mean
         sc = ns // chunks
-        z = out.z_speech
-        zb = z.reshape((wav.shape[0], ns) + tuple(z.shape[1:]))
-        parts = []
+        b = wav.shape[0]
+
+        def z_chunk(z: torch.Tensor, c: int) -> torch.Tensor:
+            zb = z.reshape((b, ns) + tuple(z.shape[1:]))
+            return zb[:, c * sc : (c + 1) * sc].reshape(
+                (-1,) + tuple(z.shape[1:]))
+
+        if direct:
+            parts = [_sample_mean(speech(z_chunk(out.z_speech, c), sc)[0], sc)
+                     for c in range(chunks)]
+            return torch.stack(parts).mean(dim=0)
+        s_parts, n_parts = [], []
         for c in range(chunks):
-            zc = zb[:, c * sc : (c + 1) * sc].reshape((-1,) + tuple(z.shape[1:]))
-            recon, _ = self.decoder(out.stft_x, zc, skips, num_samples=sc,
-                                    pad_mode=self.pad_mode)
-            parts.append(_sample_mean(recon, sc))
-        return torch.stack(parts).mean(dim=0)
+            pred_s = speech(z_chunk(out.z_speech, c), sc)[1]
+            pred_n = noise_spec(z_chunk(out.z_noise, c), sc)
+            s_parts.append(_sample_mean(pred_s, sc))
+            n_parts.append(_sample_mean(pred_n, sc))
+        est = combine_outputs(self.outtype, torch.stack(s_parts).mean(dim=0),
+                              torch.stack(n_parts).mean(dim=0), out.stft_x,
+                              num_samples=1)
+        return istft(est, s.n_fft, s.hop, s.win_length)
 
     def bucket_length(self, n_samples: int) -> int:
         return bucket_pad_length(n_samples, self.enc_cfg.stft.hop,
                                  self.bucket_frames)
+
+    def _bucketed(self, wavs: Sequence[np.ndarray], batch_size: int):
+        """Sorted by length, batch_size at a time, each batch zero-padded
+        to one bucket: yields (indices into wavs, (b, bucket) batch)."""
+        order = np.argsort([len(w) for w in wavs])
+        for i in range(0, len(order), batch_size):
+            chunk = order[i : i + batch_size]
+            bucket = self.bucket_length(max(len(wavs[j]) for j in chunk))
+            batch = np.zeros((len(chunk), bucket), np.float32)
+            for r, j in enumerate(chunk):
+                batch[r, : len(wavs[j])] = wavs[j]
+            yield chunk, batch
 
     # -- public API --------------------------------------------------------
     def enhance_batch(self, wavs, generator: Optional[torch.Generator] = None
@@ -132,8 +238,29 @@ class Enhancer:
         wav = torch.as_tensor(wavs, dtype=torch.float32, device=self.device)
         return self.forward(wav, generator)
 
-    def encode_latents(self, wavs, batch_size: int = 8, generator=None):
-        raise NotImplementedError(f"encode_latents {_DUAL_TODO}")
+    @torch.inference_mode()
+    def encode_latents(self, wavs: Sequence[np.ndarray], batch_size: int = 8,
+                       generator: Optional[torch.Generator] = None):
+        """Posterior means for latent diagnostics: (speech_mus, noise_mus),
+        lists of (T, zdim, 2) numpy arrays, each trimmed to its
+        utterance's real frame count (noise list empty for latent_num=1)."""
+        generator = self.new_generator() if generator is None else generator
+        hop = self.enc_cfg.stft.hop
+        speech, noise = [], []
+        for chunk, batch in self._bucketed(wavs, batch_size):
+            out = self.encoder(torch.from_numpy(batch).to(self.device),
+                               num_samples=1, generator=generator)
+            mus = [torch.stack([g.mu_r, g.mu_i], dim=-1).cpu().numpy()
+                   for g in (out.gauss_speech, out.gauss_noise)
+                   if g is not None]
+            for r, j in enumerate(chunk):
+                # the utterance's real frames: padded silence would bias
+                # the covariance diagnostics
+                frames = len(wavs[j]) // hop + 1
+                speech.append(mus[0][r, :frames])
+                if len(mus) == 2:
+                    noise.append(mus[1][r, :frames])
+        return speech, noise
 
     def enhance_utterances(self, wavs: Sequence[np.ndarray],
                            batch_size: int = 8,
@@ -145,14 +272,8 @@ class Enhancer:
         trimmed to its input's length.
         """
         generator = self.new_generator() if generator is None else generator
-        order = np.argsort([len(w) for w in wavs])
         results: List[Optional[np.ndarray]] = [None] * len(wavs)
-        for i in range(0, len(order), batch_size):
-            chunk = order[i : i + batch_size]
-            bucket = self.bucket_length(max(len(wavs[j]) for j in chunk))
-            batch = np.zeros((len(chunk), bucket), np.float32)
-            for r, j in enumerate(chunk):
-                batch[r, : len(wavs[j])] = wavs[j]
+        for chunk, batch in self._bucketed(wavs, batch_size):
             out = self.enhance_batch(batch, generator).cpu().numpy()
             for r, j in enumerate(chunk):
                 results[j] = out[r, : min(len(wavs[j]), out.shape[1])]

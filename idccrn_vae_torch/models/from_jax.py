@@ -1,8 +1,9 @@
 """Weight bridge: JAX variable trees -> the port's modules.
 
 `load_jax_variables(module, variables)` takes a ``{"params", "stats"}``
-tree as the JAX package's `NsvaeEncoder.init` / `VaeDecoder.init` build
-it, with numpy leaves, and fills the port module's parameters and
+tree as the JAX package's `.init` builds it (`NsvaeEncoder`,
+`VaeEncoder`, `VaeDecoder`, `SupervisedDccrn`, `LegacyDccrn`), with
+numpy leaves, and fills the port module's parameters and
 buffers. The port's names are the reference's state_dict names, so this
 is the inverse of the JAX package's `models/torch_import.py`:
 
@@ -13,6 +14,10 @@ is the inverse of the JAX package's `models/torch_import.py`:
   lstm.re[k].w_ih (In,4H)            -> lstms.0.lstm_re.weight_ih_l{k} (4H,In)
   dense.wr (I,O)                     -> dense.linear_read.weight (O,I)
   speech_heads.mean.wr (I,O)         -> speech_dense_mean.linear_read.weight (O,I)
+  heads.mean.wr (I,O)                -> dense_mean.linear_read.weight (O,I)
+
+A supervised / legacy DCCRN's names carry its module's `prefix`
+(``std_DCCRN.`` / ``DCCRN.``), as the reference's do.
 
 The BN step counter `count` has no counterpart in the port (the eval
 path never reads it) and is dropped.
@@ -69,8 +74,10 @@ def _lstm(out: dict, prefix: str, p: dict) -> None:
             out[f"{pre}.bias_hh_l{k}"] = layer["b_hh"]
 
 
-def jax_to_state_dict(variables: dict) -> Dict[str, np.ndarray]:
-    """JAX {"params", "stats"} tree -> arrays under the port's names."""
+def jax_to_state_dict(variables: dict,
+                      prefix: str = "") -> Dict[str, np.ndarray]:
+    """JAX {"params", "stats"} tree -> arrays under the port's names,
+    each preceded by `prefix` and a dot when `prefix` is given."""
     params, stats = variables["params"], variables["stats"]
     out: Dict[str, np.ndarray] = {}
     if "encoder" in params:
@@ -84,7 +91,11 @@ def jax_to_state_dict(variables: dict) -> Dict[str, np.ndarray]:
     for group in ("speech", "noise"):
         for head, p in params.get(f"{group}_heads", {}).items():
             _dense(out, f"{group}_dense_{head}", p)
-    return {k: np.ascontiguousarray(v, np.float32) for k, v in out.items()}
+    for head, p in params.get("heads", {}).items():
+        _dense(out, f"dense_{head}", p)
+    pre = f"{prefix}." if prefix else ""
+    return {pre + k: np.ascontiguousarray(v, np.float32)
+            for k, v in out.items()}
 
 
 def load_jax_variables(module: nn.Module, variables: dict) -> nn.Module:
@@ -94,7 +105,7 @@ def load_jax_variables(module: nn.Module, variables: dict) -> nn.Module:
     array must fit its tensor's size; leaves are reshaped to the port's
     shapes (BN statistics (C,) -> (1, C, 1, 1), PReLU () -> (1,)).
     """
-    arrays = jax_to_state_dict(variables)
+    arrays = jax_to_state_dict(variables, getattr(module, "prefix", ""))
     target = module.state_dict()
     missing = sorted(set(target) - set(arrays))
     extra = sorted(set(arrays) - set(target))

@@ -21,9 +21,7 @@ from idccrn_vae_torch.models.modules import (
     default_generator,
 )
 from idccrn_vae_torch.models.reparam import CGauss, reparameterize
-from idccrn_vae_torch.models.vae import apply_fc_head, parse_sliced_head
-
-_HEADS = ("mean", "logvar", "delta")
+from idccrn_vae_torch.models.vae import HEADS, apply_fc_head, parse_sliced_head
 
 
 class NsvaeOut(NamedTuple):
@@ -59,23 +57,25 @@ class NsvaeEncoder(nn.Module):
         if cfg.latent == "fc":
             groups = ("speech", "noise")[: cfg.latent_num]
             for group in groups:
-                for head in _HEADS:
+                for head in HEADS:
                     self.add_module(f"{group}_dense_{head}",
                                     ComplexDense(cfg.zdim, cfg.zdim, gen))
         self.eval()
         self.to(device)
 
     def _fc_heads(self, group: str):
-        return {h: getattr(self, f"{group}_dense_{h}") for h in _HEADS}
+        return {h: getattr(self, f"{group}_dense_{h}") for h in HEADS}
 
     def forward(self, wav: torch.Tensor, num_samples: Optional[int] = None,
                 generator: Optional[torch.Generator] = None,
-                noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                noise_n: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> NsvaeOut:
         """wav (B, L) -> NsvaeOut.
 
-        noise: optional (eps_r, eps_i) for the speech latent, each
-        (B, S, T, zdim); otherwise both latents draw from `generator`.
+        noise / noise_n: optional (eps_r, eps_i) for the speech / the
+        noise latent, each (B, S, T, zdim); a latent without one draws
+        from `generator`.
         """
         cfg = self.cfg
         ns = cfg.num_samples if num_samples is None else num_samples
@@ -91,7 +91,8 @@ class NsvaeEncoder(nn.Module):
                    if cfg.latent_num == 2 else None)
         z_s = reparameterize(g_s, ns, guard=self.guard, noise=noise,
                              generator=generator)
-        z_n = (reparameterize(g_n, ns, guard=self.guard, generator=generator)
+        z_n = (reparameterize(g_n, ns, guard=self.guard, noise=noise_n,
+                              generator=generator)
                if g_n is not None else None)
         return NsvaeOut(z_s, g_s, z_n, g_n, skips, stft_x)
 

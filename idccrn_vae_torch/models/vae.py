@@ -1,31 +1,57 @@
-"""VAE decoder and the latent heads shared with the NSVAE encoder.
+"""VAE encoder/decoder pair (CVAE / NVAE pretraining models) and the
+latent heads shared with the NSVAE encoder.
 
-Mirrors `idccrn_vae_tpu/models/vae.py`: `parse_sliced_head`,
-`apply_fc_head`, `VaeDecoder` and `finish_reconstruction`. The decoder
-returns ``(recon_sig, predict_spec)`` like the reference's
-pvae_dccrn_decoder.
+Mirrors `idccrn_vae_tpu/models/vae.py`: `EncoderOut`, `VaeEncoder`,
+`parse_sliced_head`, `apply_fc_head`, `VaeDecoder` and
+`finish_reconstruction`. The decoder returns ``(recon_sig,
+predict_spec)`` like the reference's pvae_dccrn_decoder.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from idccrn_vae_torch.device import DeviceLike, resolve_device
+from idccrn_vae_torch.models.backbone import apply_backbone
 from idccrn_vae_torch.models.config import DccrnConfig, bottleneck_dims
 from idccrn_vae_torch.models.modules import (
     ComplexDense,
+    ComplexLSTM,
     apply_decoder_stack,
     build_decoder_stages,
+    build_encoder_stages,
     default_generator,
     mask_reconstruct,
     undo_datanorm,
     unflatten_bottleneck,
 )
-from idccrn_vae_torch.models.reparam import CGauss
+from idccrn_vae_torch.models.reparam import CGauss, reparameterize
 from idccrn_vae_torch.ops.stft import istft, stft
+
+HEADS = ("mean", "logvar", "delta")
+
+
+class EncoderOut(NamedTuple):
+    z: torch.Tensor          # (B*S, T, 2*zdim) cpack
+    gauss: CGauss            # posterior parameters, each (B, T, zdim)
+    skips: list              # encoder skips (cpack maps)
+    stft_x: torch.Tensor     # (B, F, T, 2), post-datanorm if enabled
+
+
+def register_datanorm(module: nn.Module, datanorm) -> None:
+    """Per-bin (F, 2) mean/std as non-persistent buffers `dn_mean` /
+    `dn_std` (None without datanorm): not in the reference's state_dict."""
+    mean, std = (None, None) if datanorm is None else (
+        torch.as_tensor(d, dtype=torch.float32) for d in datanorm)
+    module.register_buffer("dn_mean", mean, persistent=False)
+    module.register_buffer("dn_std", std, persistent=False)
+
+
+def datanorm_of(module: nn.Module):
+    return None if module.dn_mean is None else (module.dn_mean, module.dn_std)
 
 
 def parse_sliced_head(lstm_out: torch.Tensor, zdim: int,
@@ -61,6 +87,62 @@ def apply_fc_head(lstm_out: torch.Tensor,
     )
 
 
+class VaeEncoder(nn.Module):
+    """Pretrain VAE encoder (CVAE on clean speech / NVAE on noise), eval
+    mode: the sliced 3*zdim LSTM head, or for ``latent="fc"`` the
+    `dense_mean` / `dense_logvar` / `dense_delta` heads, the reference's
+    names. Optional per-bin datanorm before the conv stack.
+
+    Weights are drawn on the CPU from `generator` and moved to `device`
+    (CUDA unless the caller asks for another device).
+    """
+
+    def __init__(self, cfg: DccrnConfig,
+                 datanorm: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        cfg.compute_dtype  # rejects compute modes the port lacks
+        gen = default_generator(generator)
+        self.cfg = cfg
+        self.guard = "clamp" if cfg.latent == "fc" else "eps"
+        self.encoders = build_encoder_stages(cfg, gen)
+        c, f = bottleneck_dims(cfg)
+        lstm_out = cfg.zdim if cfg.latent == "fc" else 3 * cfg.zdim
+        self.lstms = nn.ModuleList(
+            [ComplexLSTM(c * f, lstm_out, cfg.lstm_layers, gen)])
+        if cfg.latent == "fc":
+            for head in HEADS:
+                self.add_module(f"dense_{head}",
+                                ComplexDense(cfg.zdim, cfg.zdim, gen))
+        register_datanorm(self, datanorm)
+        self.eval()
+        self.to(device)
+
+    def forward(self, wav: torch.Tensor, num_samples: Optional[int] = None,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> EncoderOut:
+        """wav (B, L) -> EncoderOut.
+
+        noise: optional (eps_r, eps_i), each (B, S, T, zdim); otherwise
+        the draws come from `generator`.
+        """
+        cfg = self.cfg
+        ns = cfg.num_samples if num_samples is None else num_samples
+        lstm_out, skips, stft_x = apply_backbone(
+            self.encoders, self.lstms[0], wav, cfg, datanorm_of(self))
+        if cfg.latent == "fc":
+            gauss = apply_fc_head(
+                lstm_out, {h: getattr(self, f"dense_{h}") for h in HEADS})
+        else:
+            gauss = parse_sliced_head(lstm_out, cfg.zdim)
+        z = reparameterize(gauss, ns, guard=self.guard, noise=noise,
+                           generator=generator)
+        return EncoderOut(z, gauss, skips, stft_x)
+
+
 class VaeDecoder(nn.Module):
     """Pretrain VAE decoder, eval mode; skip handling per cfg.skip_mode.
 
@@ -80,11 +162,7 @@ class VaeDecoder(nn.Module):
         c, f = bottleneck_dims(cfg)
         self.dense = ComplexDense(cfg.zdim, c * f, gen)
         self.decoders = build_decoder_stages(cfg, gen)
-        # per-bin (F, 2) mean/std; not in the reference's state_dict
-        mean, std = (None, None) if datanorm is None else (
-            torch.as_tensor(d, dtype=torch.float32) for d in datanorm)
-        self.register_buffer("dn_mean", mean, persistent=False)
-        self.register_buffer("dn_std", std, persistent=False)
+        register_datanorm(self, datanorm)
         self.eval()
         self.to(device)
 
@@ -104,9 +182,7 @@ class VaeDecoder(nn.Module):
         p = unflatten_bottleneck(dense_out, c, f)
         out = apply_decoder_stack(self.decoders, p, skips, cfg,
                                   num_samples=ns, pad_mode=pad_mode)
-        datanorm = (None if self.dn_mean is None
-                    else (self.dn_mean, self.dn_std))
-        return finish_reconstruction(out, stft_x, cfg, ns, datanorm)
+        return finish_reconstruction(out, stft_x, cfg, ns, datanorm_of(self))
 
 
 def finish_reconstruction(out: torch.Tensor, stft_x: torch.Tensor,

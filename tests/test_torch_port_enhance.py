@@ -103,17 +103,53 @@ def test_bucket_pad_length_matches_jax(n):
                 == jenhance.bucket_pad_length(n, 100, frames))
 
 
-def test_unported_serving_modes_raise():
-    _, tc = configs(latent_num=2, channel_mode="double")
-    _, tdec = configs()
-    enc = NsvaeEncoder(tc, device="cpu").state_dict()
-    dec = VaeDecoder(tdec, device="cpu").state_dict()
-    for kw in ({"latent_to_use": 2}, {"outtype": "complex_mask"}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-            tenhance.Enhancer(tc, tdec, enc, dec, device="cpu", **kw)
-    e = tenhance.Enhancer(tc, tdec, enc, dec, device="cpu", num_samples=1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        e.encode_latents([np.zeros(1600, np.float32)])
-    with pytest.raises(ValueError, match="sample_chunks"):
-        tenhance.Enhancer(tc, tdec, enc, dec, device="cpu", num_samples=3,
-                          sample_chunks=2)
+def _invalid_enhancer(case):
+    """Build the Enhancer of one invalid argument set (tiny geometry)."""
+    _, dual = configs(latent_num=2, channel_mode="double")
+    _, single = configs()
+    enc = {c: NsvaeEncoder(c, device="cpu").state_dict()
+           for c in (dual, single)}
+    dec = VaeDecoder(single, device="cpu").state_dict()
+    kw = dict(device="cpu", num_samples=1)
+    if case == "dual_without_noise_decoder":
+        return tenhance.Enhancer(dual, single, enc[dual], dec,
+                                 latent_to_use=2, outtype="complex_mask",
+                                 **kw)
+    if case == "dual_with_single_latent_encoder":
+        return tenhance.Enhancer(single, single, enc[single], dec, dec,
+                                 latent_to_use=2, **kw)
+    if case == "mask_with_one_latent":
+        return tenhance.Enhancer(dual, single, enc[dual], dec, dec,
+                                 outtype="complex_mask", **kw)
+    if case == "unknown_outtype":
+        return tenhance.Enhancer(dual, single, enc[dual], dec, dec,
+                                 latent_to_use=2, outtype="wiener", **kw)
+    if case == "latent_to_use_3":
+        return tenhance.Enhancer(single, single, enc[single], dec,
+                                 latent_to_use=3, **kw)
+    if case == "int8":
+        _, int8 = configs(compute="int8")
+        return tenhance.Enhancer(int8, single, enc[single], dec, **kw)
+    if case == "sample_chunks":
+        kw["num_samples"] = 3
+        return tenhance.Enhancer(single, single, enc[single], dec,
+                                 sample_chunks=2, **kw)
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("dual_without_noise_decoder", ValueError, "noise decoder weights"),
+    ("dual_with_single_latent_encoder", ValueError, "dual-latent encoder"),
+    ("mask_with_one_latent", ValueError, "latent_to_use=2"),
+    ("unknown_outtype", ValueError, "unknown outtype"),
+    ("latent_to_use_3", ValueError, "latent_to_use must be 1 or 2"),
+    ("int8", NotImplementedError, "item 19"),
+    ("sample_chunks", ValueError, "sample_chunks"),
+])
+def test_unported_serving_modes_raise(case, error, match):
+    """The serving validation that still applies: the dual-latent path
+    needs a latent_num=2 encoder and noise decoder weights, the mask
+    out-types need latent_to_use=2, int8 is not ported, and
+    sample_chunks must divide num_samples."""
+    with pytest.raises(error, match=match):
+        _invalid_enhancer(case)

@@ -14,12 +14,17 @@ import pytest
 import torch
 
 from idccrn_vae_tpu.models import torch_import
+from idccrn_vae_tpu.models.dccrn import LegacyDccrn as JaxLegacy
+from idccrn_vae_tpu.models.dccrn import SupervisedDccrn as JaxSupervised
 from idccrn_vae_tpu.models.nsvae import NsvaeEncoder as JaxEncoder
 from idccrn_vae_tpu.models.vae import VaeDecoder as JaxDecoder
+from idccrn_vae_tpu.models.vae import VaeEncoder as JaxVaeEncoder
 from idccrn_vae_torch.eval.enhance import Enhancer
+from idccrn_vae_torch.eval.streaming import StreamingEnhancer
+from idccrn_vae_torch.models.dccrn import LegacyDccrn, SupervisedDccrn
 from idccrn_vae_torch.models.from_jax import load_jax_variables
 from idccrn_vae_torch.models.nsvae import NsvaeEncoder
-from idccrn_vae_torch.models.vae import VaeDecoder
+from idccrn_vae_torch.models.vae import VaeDecoder, VaeEncoder
 from torch_port_util import configs, np_vars
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -68,8 +73,14 @@ def test_entry_points_default_to_cuda_and_do_not_fall_back():
     _, tc = configs()
     enc = NsvaeEncoder(tc, device="cpu").state_dict()
     dec = VaeDecoder(tc, device="cpu").state_dict()
+    sup = SupervisedDccrn(tc, device="cpu").state_dict()
     for build in (lambda: NsvaeEncoder(tc), lambda: VaeDecoder(tc),
-                  lambda: Enhancer(tc, tc, enc, dec)):
+                  lambda: Enhancer(tc, tc, enc, dec),
+                  lambda: VaeEncoder(tc), lambda: SupervisedDccrn(tc),
+                  lambda: LegacyDccrn(tc),
+                  lambda: StreamingEnhancer(tc, tc, enc, dec),
+                  lambda: StreamingEnhancer(tc, tc, sup, None,
+                                            model="supervised")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
 
@@ -88,28 +99,44 @@ def _assert_tree_equal(got, want, path=""):
                                       err_msg=path)
 
 
-@pytest.mark.parametrize("extra", [
-    {},
-    {"latent": "fc", "latent_num": 2, "channel_mode": "double"},
+FAMILIES = {
+    "nsvae": ((JaxEncoder, NsvaeEncoder, torch_import.import_nsvae_encoder),
+              (JaxDecoder, VaeDecoder, torch_import.import_vae_decoder)),
+    "vae_encoder": ((JaxVaeEncoder, VaeEncoder,
+                     torch_import.import_vae_encoder),),
+    "supervised": ((JaxSupervised, SupervisedDccrn,
+                    torch_import.import_supervised_dccrn),),
+    "legacy": ((JaxLegacy, LegacyDccrn, torch_import.import_legacy_dccrn),),
+}
+
+
+@pytest.mark.parametrize("family,extra", [
+    pytest.param("nsvae", {}, id="extra0"),
+    pytest.param("nsvae", {"latent": "fc", "latent_num": 2,
+                           "channel_mode": "double"}, id="extra1"),
+    pytest.param("vae_encoder", {}, id="vae_encoder-sliced"),
+    pytest.param("vae_encoder", {"latent": "fc"}, id="vae_encoder-fc"),
+    pytest.param("supervised", {"lstm_hidden": 8}, id="supervised"),
+    pytest.param("legacy", {"lstm_hidden": 8}, id="legacy"),
 ])
-def test_bridge_round_trips_through_torch_import(extra):
+def test_bridge_round_trips_through_torch_import(family, extra):
     """JAX vars -> load_jax_variables -> port state_dict ->
     torch_import -> the same arrays, exactly. The one exception is the BN
     step counter: the port has no counterpart, and the importer sets it
     to 1 (a trained checkpoint's running stats are live), where `.init`
     gives 0."""
     jc, tc = configs(**extra)
-    for jax_model, port_model, importer in (
-            (JaxEncoder, NsvaeEncoder, torch_import.import_nsvae_encoder),
-            (JaxDecoder, VaeDecoder, torch_import.import_vae_decoder)):
+    for jax_model, port_model, importer in FAMILIES[family]:
         variables = np_vars(jax_model(jc).init(jax.random.PRNGKey(3)))
         module = load_jax_variables(port_model(tc, device="cpu"), variables)
         sd = {k: v.numpy() for k, v in module.state_dict().items()}
         back = np_vars(importer(sd, jc))
-        for stage_stats in next(iter(back["stats"].values())):
-            assert stage_stats.pop("count") == 1
-        for stage_stats in next(iter(variables["stats"].values())):
-            assert stage_stats.pop("count") == 0
+        for group in back["stats"].values():
+            for stage_stats in group:
+                assert stage_stats.pop("count") == 1
+        for group in variables["stats"].values():
+            for stage_stats in group:
+                assert stage_stats.pop("count") == 0
         _assert_tree_equal(back, variables)
 
 

@@ -74,9 +74,11 @@ class NoiseStream:
                      for _ in range(2))
 
 
-def patch_jax_noise(monkeypatch, stream: NoiseStream) -> None:
-    """Route the JAX NSVAE encoder's draws through `stream` (test-side
-    patch of the name the encoder module looks up)."""
+def patch_jax_noise(monkeypatch, stream: NoiseStream,
+                    module: str = "idccrn_vae_tpu.models.nsvae") -> None:
+    """Route the draws of the JAX encoder in `module` (the NSVAE encoder
+    by default) through `stream` (test-side patch of the name the
+    encoder module looks up)."""
     from idccrn_vae_tpu.models.reparam import reparameterize
 
     def fixed(rng, g, num_samples, guard="eps", noise=None):
@@ -85,7 +87,7 @@ def patch_jax_noise(monkeypatch, stream: NoiseStream) -> None:
         return reparameterize(rng, g, num_samples, guard=guard,
                               noise=(jnp.asarray(er), jnp.asarray(ei)))
 
-    monkeypatch.setattr("idccrn_vae_tpu.models.nsvae.reparameterize", fixed)
+    monkeypatch.setattr(f"{module}.reparameterize", fixed)
 
 
 def patch_port_noise(monkeypatch, stream: NoiseStream) -> None:
@@ -100,6 +102,14 @@ def patch_port_noise(monkeypatch, stream: NoiseStream) -> None:
                                      torch.from_numpy(ei)))
 
     monkeypatch.setattr("idccrn_vae_torch.models.nsvae.reparameterize", fixed)
+
+
+def datanorm_stats(seed: int, freq_bins: int = 257):
+    """Per-bin (mean, std), each (F, 2) float32, std > 0."""
+    rng = np.random.default_rng(seed)
+    mean = 0.01 * rng.standard_normal((freq_bins, 2))
+    std = 1.0 + 0.1 * rng.random((freq_bins, 2))
+    return mean.astype(np.float32), std.astype(np.float32)
 
 
 def wav_batch(seed: int, b: int, n: int) -> np.ndarray:
