@@ -38,6 +38,28 @@ one summary line each:
   vae_recon        VaeEncoder -> VaeDecoder (num_samples 5, zero skips,
                    datanorm) card against CPU
 
+The evaluation entry points, on a corpus of 24 utterances of 1.5-6 s from
+`data/synth.make_corpus` (four SNR buckets), with the weights above
+written as port checkpoint dirs (meta.json + best.pt) in a temp dir;
+each CLI runs on its default device, the card:
+
+  eval_cli         cli.test_enhance, phase 1, --compute bf16, num_samples
+                   10, batch 8, --write_wavs --corpus_meta: every score
+                   finite, each wav equal to Enhancer.enhance_utterances
+                   (same seed) to one PCM16 step; the wall-time split
+                   (load, enhance, score enhanced, score noisy), RTFx of
+                   the enhance part and of the whole CLI
+  prevae_cli       cli.test_prevae over the clean split, num_samples 10:
+                   finite scores and the latent_diag keys
+  supervised_cli   cli.test_supervised: each wav equal to SupervisedDccrn
+                   over the runner's batches to one PCM16 step
+  stream_cli       cli.stream_enhance over 4 files: each wav equal to
+                   StreamingEnhancer.stream to one PCM16 step; the CLI's
+                   report
+
+The scores come from random weights and say nothing of enhancement
+quality.
+
 The port has no hand-written kernel yet: every op of these paths is a
 PyTorch op (cuDNN convolution, cuBLAS matmul, cuFFT, elementwise), so
 the kernel table it prints is empty.
@@ -578,7 +600,8 @@ def _loaded(cls, state, *args, **kw):
     return module
 
 
-def phase_supervised(device: str, smi: str, iters: int = 20) -> None:
+def phase_supervised(device: str, smi: str, iters: int = 20):
+    """Returns the model's (state_dict, datanorm) for the eval phases."""
     from idccrn_vae_torch.models.dccrn import LegacyDccrn, SupervisedDccrn
 
     gen = torch.Generator().manual_seed(SEED + 30)
@@ -649,14 +672,17 @@ def phase_supervised(device: str, smi: str, iters: int = 20) -> None:
     _check_close("supervised", card, cpu, F32_REL, model="streamer",
                  vs="cpu", tf32="off", batch=b,
                  chunk_frames=STREAM_CHUNK_FRAMES)
+    return state, dn
 
 
 # -------------------------------------------------------------- vae_recon
 
 
-def phase_vae_recon(device: str) -> None:
+def phase_vae_recon(device: str):
     """configs/pretrained_cvae.ini's usage line: causal, zdim 128,
-    num_samples 5, --skip_padding (zero skips); with seeded datanorm."""
+    num_samples 5, --skip_padding (zero skips); with seeded datanorm.
+    Returns (cfg, datanorm, encoder state, decoder state) for the eval
+    phases."""
     from idccrn_vae_torch.models.config import DccrnConfig
     from idccrn_vae_torch.models.vae import VaeDecoder, VaeEncoder
 
@@ -687,6 +713,369 @@ def phase_vae_recon(device: str) -> None:
     _check_close("vae_recon", card, recon("cpu"), F32_REL, vs="cpu",
                  tf32="off", batch=b, num_samples=cfg.num_samples,
                  seconds=CLIP_S)
+    return cfg, dn, enc_state, dec_state
+
+
+# -------------------------------------------------------- evaluation CLIs
+
+EVAL_UTTS = 24
+EVAL_MAX_S = 6.0
+EVAL_MIN_S = 1.5
+STREAM_FILES = 4
+
+
+class _Timed:
+    """Wall time of named callables while a CLI runs: for the block,
+    each (owner, attribute) is wrapped to append (attribute, seconds)
+    to `calls` per call, and restored after."""
+
+    def __init__(self, *targets):
+        self.targets = targets
+        self.calls = []
+
+    def __enter__(self):
+        self.saved = [(owner, name, getattr(owner, name))
+                      for owner, name in self.targets]
+        for owner, name, fn in self.saved:
+            setattr(owner, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)  # each wrapped call returns host data
+            self.calls.append((name, time.perf_counter() - t0))
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+    def seconds(self, name):
+        return [dt for n, dt in self.calls if n == name]
+
+
+def _pcm16(x: np.ndarray) -> np.ndarray:
+    """What write_wav stores for float32 x, read back as read_wav does."""
+    x = np.asarray(x, np.float32)
+    return (np.round(np.clip(x, -1.0, 1.0) * 32767.0) / 32768.0).astype(
+        np.float32)
+
+
+def _check_wavs(phase: str, out_dir: str, names, want) -> float:
+    """Each written wav is the PCM16 form of `want` to one step; returns
+    the largest difference in PCM16 steps."""
+    from idccrn_vae_torch.data.audio_io import read_wav
+
+    worst = 0.0
+    for name, w in zip(names, want):
+        got, fs = read_wav(os.path.join(out_dir, name))
+        _check(fs == FS and got.shape == w.shape,
+               f"{phase} {name}: {got.shape} at {fs} Hz, want {w.shape}")
+        worst = max(worst, float(np.abs(got - _pcm16(w)).max()) * 32768)
+    _check(worst <= 1.0, f"{phase} wavs differ by {worst} PCM16 steps")
+    return worst
+
+
+def _make_corpus(root: str):
+    """24 validation utterances of `data/synth.make_corpus` (6 s mixes,
+    the four SNR buckets round-robin), each then cut to a seeded length
+    in [1.5, 6] s so the batches fall in several buckets (the labels
+    stay those of the 6 s mixes). Returns (noisy dir, clean dir,
+    corpus_meta.json path, noisy paths)."""
+    from idccrn_vae_torch.data.audio_io import read_wav, write_wav
+    from idccrn_vae_torch.data.segments import find_wavs
+    from idccrn_vae_torch.data.synth import make_corpus
+
+    dirs, _ = make_corpus(root, 0, EVAL_UTTS, utt_seconds=EVAL_MAX_S,
+                          seed=SEED)
+    lengths = np.random.default_rng(SEED + 50).integers(
+        int(EVAL_MIN_S * FS), int(EVAL_MAX_S * FS) + 1, size=EVAL_UTTS)
+    for i, n in enumerate(lengths):
+        for kind in ("noisy", "clean"):
+            path = os.path.join(dirs[f"{kind}_val"], f"{kind}_fileid_{i}.wav")
+            write_wav(path, read_wav(path)[0][:n], FS)
+    return (dirs["noisy_val"], dirs["clean_val"],
+            os.path.join(root, "corpus_meta.json"),
+            find_wavs(dirs["noisy_val"]))
+
+
+def _write_checkpoints(root: str, weights, supervised, vae) -> dict:
+    """The script's seeded weights as port checkpoint dirs (meta.json in
+    the JAX package's schema, best.pt): phase 1's NSVAE dir and its
+    pretrained-CVAE decoder dir (the f32/bf16 phases' weights), the
+    pretrained VAE of phase vae_recon and the supervised DCCRN of phase
+    supervised, each with its datanorm."""
+    from idccrn_vae_torch.train.checkpoint import (
+        CheckpointManager,
+        datanorm_to_meta,
+    )
+
+    cfg = _config("f32")
+    vae_cfg, vae_dn, vae_enc, vae_dec = vae
+    sup_state, sup_dn = supervised
+    dirs = {}
+    for name, meta, best in (
+            ("cvae", {"config": cfg, "datanorm": None}, {"dec": weights[1]}),
+            ("nsvae", {"pre_config": cfg, "noisy_config": cfg},
+             {"noisy_enc": weights[0]}),
+            ("vae", {"config": vae_cfg, "datanorm": datanorm_to_meta(vae_dn)},
+             {"enc": vae_enc, "dec": vae_dec}),
+            ("supervised", {"config": _supervised_config("f32"),
+                            "datanorm": datanorm_to_meta(sup_dn)},
+             sup_state)):
+        dirs[name] = os.path.join(root, name)
+        ckpt = CheckpointManager(dirs[name])
+        ckpt.save_meta(meta)
+        ckpt.save_best(best)
+    return dirs
+
+
+def _finite_scores(phase: str, res: dict, n: int) -> None:
+    per = res["per_utterance"]
+    _check(len(per) == n, f"{phase} scored {len(per)} of {n} utterances")
+    _check(all(np.isfinite(list(v.values())).all() for v in per.values()),
+           f"{phase}: a score is not finite")
+
+
+def _means(res: dict) -> str:
+    return ",".join(f"{k}:{v['mean']:.3f}" for k, v in res["summary"].items())
+
+
+def _device_args(device):
+    """The CLIs run on their default device, the card, unless a
+    rehearsal without one names another."""
+    return [] if device is None else ["--device", device]
+
+
+def phase_eval_cli(dirs: dict, corpus, out_root: str, smi: str,
+                   device=None) -> None:
+    """cli/test_enhance (phase 1, --compute bf16, the CLI's defaults:
+    num_samples 10, batch 8) over the corpus, with --write_wavs and
+    --corpus_meta. The same Enhancer's enhance_utterances with the same
+    seed runs first on the card: it warms the shapes up and is what the
+    written wavs are held against. The CLI's wall time is split by
+    wrapping the runner's load_testset / score_pairs and
+    Enhancer.enhance_utterances, each of which returns host data."""
+    import dataclasses
+
+    from idccrn_vae_torch.cli import test_enhance
+    from idccrn_vae_torch.cli.common import load_enhancement_checkpoints
+    from idccrn_vae_torch.eval import runners
+    from idccrn_vae_torch.eval.enhance import Enhancer
+
+    noisy_dir, clean_dir, meta_path, paths = corpus
+    enc_cfg, dec_cfg, enc, dec, _, pad_mode = load_enhancement_checkpoints(
+        dirs["nsvae"], dirs["cvae"])
+    bf16 = lambda c: dataclasses.replace(c, compute="bf16")
+    enh = Enhancer(bf16(enc_cfg), bf16(dec_cfg), enc, dec, num_samples=10,
+                   pad_mode=pad_mode, device=device)
+    wavs = runners.load_testset(paths)
+    want = enh.enhance_utterances(wavs, batch_size=8,
+                                  generator=enh.new_generator(0))
+    out = os.path.join(out_root, "eval_cli")
+    with _Timed((runners, "load_testset"), (runners, "score_pairs"),
+                (Enhancer, "enhance_utterances")) as t:
+        t0 = time.perf_counter()
+        res = test_enhance.main([
+            "--nsvae_dir", dirs["nsvae"], "--decoder_dir", dirs["cvae"],
+            "--noisy_dir", noisy_dir, "--clean_dir", clean_dir,
+            "--out_dir", out, "--compute", "bf16", "--write_wavs",
+            "--corpus_meta", meta_path, *_device_args(device)])
+        cli_s = time.perf_counter() - t0
+    _finite_scores("eval_cli", res, len(paths))
+    _finite_scores("eval_cli noisy", {"per_utterance":
+                                      res["noisy_per_utterance"]}, len(paths))
+    _check(len(res["per_snr_bucket"]) == 4, "eval_cli bucket report")
+    names = [os.path.basename(p) for p in paths]
+    lsb = _check_wavs("eval_cli", os.path.join(out, "enhanced"), names, want)
+    load_s = sum(t.seconds("load_testset"))
+    (enhance_s,) = t.seconds("enhance_utterances")
+    score_enh, score_noisy = t.seconds("score_pairs")
+    audio_s = sum(len(w) for w in wavs) / FS
+    n = len(paths)
+    _line("eval_cli", utterances=n, audio_s=f"{audio_s:.2f}",
+          compute="bf16", num_samples=10, batch=8,
+          buckets=len(res["per_snr_bucket"]), wav_max_diff_pcm16=f"{lsb:g}",
+          warm="reference run first", card=json.dumps(smi))
+    _line("eval_cli", cli_s=f"{cli_s:.3f}", load_s=f"{load_s:.3f}",
+          enhance_s=f"{enhance_s:.3f}",
+          score_enhanced_s=f"{score_enh:.3f}",
+          score_noisy_s=f"{score_noisy:.3f}",
+          other_s=f"{cli_s - load_s - enhance_s - score_enh - score_noisy:.3f}",
+          host_share=f"{1 - enhance_s / cli_s:.3f}",
+          enhance_rtfx=f"{audio_s / enhance_s:.1f}",
+          cli_rtfx=f"{audio_s / cli_s:.1f}",
+          score_ms_per_utt=f"{1e3 * (score_enh + score_noisy) / (2 * n):.1f}")
+    _line("eval_cli", random_weights="scores say nothing of quality",
+          enhanced_means=_means(res),
+          noisy_means=_means({"summary": res["noisy_summary"]}))
+
+
+def phase_prevae_cli(dirs: dict, corpus, out_root: str, smi: str,
+                     device=None) -> None:
+    """cli/test_prevae (num_samples 10, batch 8) over the corpus's clean
+    split, after one warm-up batch of the longest utterances through the
+    same encoder and decoder."""
+    from idccrn_vae_torch.cli import test_prevae
+    from idccrn_vae_torch.cli.common import config_from_meta
+    from idccrn_vae_torch.data.segments import find_wavs
+    from idccrn_vae_torch.eval.enhance import bucket_pad_length
+    from idccrn_vae_torch.models.vae import VaeDecoder, VaeEncoder
+    from idccrn_vae_torch.train.checkpoint import (
+        CheckpointManager,
+        datanorm_from_meta,
+    )
+
+    ckpt = CheckpointManager(dirs["vae"])
+    meta, best = ckpt.load_meta(), ckpt.load_best()
+    cfg, dn = config_from_meta(meta), datanorm_from_meta(meta)
+    enc = _loaded(VaeEncoder, best["enc"], cfg, dn, device=device)
+    dec = _loaded(VaeDecoder, best["dec"], cfg, dn, device=device)
+    warm = torch.zeros(8, bucket_pad_length(int(EVAL_MAX_S * FS), 100),
+                       device=next(enc.parameters()).device)
+    with torch.inference_mode():
+        z = enc(warm, num_samples=10)
+        dec(z.stft_x, z.z, z.skips, num_samples=10)[0].cpu()
+    clean_dir = corpus[1]
+    out = os.path.join(out_root, "prevae_cli")
+    t0 = time.perf_counter()
+    res = test_prevae.main(["--model_dir", dirs["vae"], "--test_dir",
+                            clean_dir, "--out_dir", out,
+                            "--num_samples", "10", *_device_args(device)])
+    cli_s = time.perf_counter() - t0
+    n = len(find_wavs(clean_dir))
+    _finite_scores("prevae_cli", res, n)
+    diag = res["latent_diag"]
+    keys = {"var_real", "var_imag", "offdiag_mean_abs_real",
+            "offdiag_mean_abs_imag"}
+    _check(set(diag) == keys, f"prevae_cli latent_diag keys {sorted(diag)}")
+    _check(all(np.isfinite(np.asarray(diag[k], np.float64)).all()
+               and np.size(diag[k]) in (1, cfg.zdim) for k in keys),
+           "prevae_cli latent_diag values")
+    audio_s = _audio_seconds(clean_dir)
+    _line("prevae_cli", utterances=n, audio_s=f"{audio_s:.2f}",
+          num_samples=10, batch=8, compute=cfg.compute,
+          cli_s=f"{cli_s:.3f}", cli_rtfx=f"{audio_s / cli_s:.1f}",
+          latent_diag=",".join(sorted(diag)),
+          cov_figure=os.path.exists(os.path.join(out, "cov_mu_diag.png")),
+          warm="one batch", card=json.dumps(smi))
+    _line("prevae_cli", random_weights="scores say nothing of quality",
+          means=_means(res))
+
+
+def _audio_seconds(wav_dir: str) -> float:
+    from idccrn_vae_torch.data.audio_io import read_wav
+    from idccrn_vae_torch.data.segments import find_wavs
+
+    return sum(len(read_wav(p)[0]) for p in find_wavs(wav_dir)) / FS
+
+
+def phase_supervised_cli(dirs: dict, corpus, out_root: str, smi: str,
+                         device=None) -> None:
+    """cli/test_supervised (batch 8, --write_wavs, --corpus_meta). The
+    model is deterministic: each written wav is held against
+    SupervisedDccrn on the card over the runner's batches (sorted by
+    length, 8 at a time, each padded to its bucket), which run first
+    and warm the shapes up."""
+    from idccrn_vae_torch.cli import test_supervised
+    from idccrn_vae_torch.cli.common import config_from_meta
+    from idccrn_vae_torch.eval.enhance import bucket_pad_length
+    from idccrn_vae_torch.eval.runners import load_testset
+    from idccrn_vae_torch.models.dccrn import SupervisedDccrn
+    from idccrn_vae_torch.train.checkpoint import (
+        CheckpointManager,
+        datanorm_from_meta,
+    )
+
+    noisy_dir, clean_dir, meta_path, paths = corpus
+    ckpt = CheckpointManager(dirs["supervised"])
+    cfg = config_from_meta(ckpt.load_meta())
+    model = _loaded(SupervisedDccrn, ckpt.load_best(), cfg,
+                    datanorm_from_meta(ckpt.load_meta()), device=device)
+    on = next(model.parameters()).device
+    wavs = load_testset(paths)
+    want = [None] * len(wavs)
+    order = np.argsort([len(w) for w in wavs])
+    for i in range(0, len(order), 8):
+        chunk = order[i : i + 8]
+        batch = np.zeros((len(chunk), bucket_pad_length(
+            max(len(wavs[j]) for j in chunk), cfg.stft.hop)), np.float32)
+        for r, j in enumerate(chunk):
+            batch[r, : len(wavs[j])] = wavs[j]
+        with torch.inference_mode():
+            out = model(torch.from_numpy(batch).to(on))[0].cpu().numpy()
+        for r, j in enumerate(chunk):
+            want[j] = out[r, : len(wavs[j])]
+    out_dir = os.path.join(out_root, "supervised_cli")
+    t0 = time.perf_counter()
+    res = test_supervised.main([
+        "--model_dir", dirs["supervised"], "--noisy_dir", noisy_dir,
+        "--clean_dir", clean_dir, "--out_dir", out_dir, "--write_wavs",
+        "--corpus_meta", meta_path, *_device_args(device)])
+    cli_s = time.perf_counter() - t0
+    _finite_scores("supervised_cli", res, len(paths))
+    names = [os.path.basename(p) for p in paths]
+    lsb = _check_wavs("supervised_cli", os.path.join(out_dir, "enhanced"),
+                      names, want)
+    audio_s = sum(len(w) for w in wavs) / FS
+    _line("supervised_cli", utterances=len(paths), audio_s=f"{audio_s:.2f}",
+          batch=8, compute=cfg.compute, cli_s=f"{cli_s:.3f}",
+          cli_rtfx=f"{audio_s / cli_s:.1f}",
+          wav_max_diff_pcm16=f"{lsb:g}",
+          buckets=len(res["per_snr_bucket"]),
+          warm="reference run first", card=json.dumps(smi))
+    _line("supervised_cli", random_weights="scores say nothing of quality",
+          means=_means(res))
+
+
+def phase_stream_cli(dirs: dict, corpus, out_root: str, smi: str,
+                     device=None) -> None:
+    """cli/stream_enhance (phase-1 NSVAE, 10-frame chunks) over 4 of the
+    corpus's noisy files; each output wav is held against
+    StreamingEnhancer.stream of the same file on the card, which runs
+    first. The CLI's report line is printed as one field here."""
+    import contextlib
+    import io
+    import shutil
+
+    from idccrn_vae_torch.cli import stream_enhance
+    from idccrn_vae_torch.cli.common import load_enhancement_checkpoints
+    from idccrn_vae_torch.data.audio_io import read_wav
+    from idccrn_vae_torch.eval.streaming import StreamingEnhancer
+
+    in_dir = os.path.join(out_root, "stream_in")
+    os.makedirs(in_dir)
+    paths = corpus[3][:STREAM_FILES]
+    for p in paths:
+        shutil.copy(p, in_dir)
+    enc_cfg, dec_cfg, enc, dec, _, _ = load_enhancement_checkpoints(
+        dirs["nsvae"], dirs["cvae"])
+    streamer = StreamingEnhancer(enc_cfg, dec_cfg, enc, dec,
+                                 chunk_frames=STREAM_CHUNK_FRAMES,
+                                 device=device)
+    want = [streamer.stream(read_wav(p)[0][None]).cpu().numpy()[0]
+            for p in paths]
+    out = os.path.join(out_root, "stream_cli")
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        report = stream_enhance.main([
+            "--nsvae_dir", dirs["nsvae"], "--decoder_dir", dirs["cvae"],
+            "--in_dir", in_dir, "--out_dir", out,
+            "--chunk_frames", str(STREAM_CHUNK_FRAMES),
+            *_device_args(device)])
+    cli_s = time.perf_counter() - t0
+    _check(json.loads(printed.getvalue()) == report,
+           "stream_cli printed report")
+    _check(report["files"] == len(paths), "stream_cli file count")
+    lsb = _check_wavs("stream_cli", out,
+                      [os.path.basename(p) for p in paths], want)
+    _line("stream_cli", files=len(paths), cli_s=f"{cli_s:.3f}",
+          wav_max_diff_pcm16=f"{lsb:g}", warm="reference stream first",
+          card=json.dumps(smi))
+    _line("stream_cli", report=json.dumps(report, separators=(",", ":")))
 
 
 def main(argv=None) -> int:
@@ -719,8 +1108,22 @@ def main(argv=None) -> int:
     phase_trace(dual_enh, device, args.trace_dir, THROUGHPUT_BATCHES[0],
                 phase="dual_trace")
     phase_streaming(weights, device, smi, args.trace_dir)
-    phase_supervised(device, smi)
-    phase_vae_recon(device)
+    supervised = phase_supervised(device, smi)
+    vae = phase_vae_recon(device)
+
+    import tempfile
+
+    t_eval = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        corpus = _make_corpus(os.path.join(root, "corpus"))
+        dirs = _write_checkpoints(os.path.join(root, "ckpt"), weights,
+                                  supervised, vae)
+        phase_eval_cli(dirs, corpus, root, smi)
+        phase_prevae_cli(dirs, corpus, root, smi)
+        phase_supervised_cli(dirs, corpus, root, smi)
+        phase_stream_cli(dirs, corpus, root, smi)
+    _line("eval_phases", seconds=f"{time.perf_counter() - t_eval:.1f}",
+          what="corpus, checkpoints and the four CLI phases")
     # no hand-written kernel is on these paths yet
     print(json.dumps({"kernels": []}))
     _line("done", seconds=f"{time.perf_counter() - t_start:.1f}")

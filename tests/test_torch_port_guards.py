@@ -1,6 +1,7 @@
-"""Guards around the port: it imports neither JAX nor the JAX package, it
-never drifts to the CPU on its own, `chip_smoke.py` refuses to run
-without a card, and the weight bridge round-trips through the JAX
+"""Guards around the port: it imports neither JAX, orbax nor the JAX
+package, it never drifts to the CPU on its own (the entry points and
+the CLIs), `chip_smoke.py` refuses to run without a card, every CLI
+answers --help, and the weight bridge round-trips through the JAX
 package's checkpoint importer."""
 
 import os
@@ -36,7 +37,10 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "idccrn_vae_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "idccrn_vae_tpu",
+                                    "orbax"))
+for sub in ("cli", "data", "utils", "train", "eval", "models", "ops"):
+    assert any(n.startswith(f"{pkg.__name__}.{sub}.") for n in names), sub
 print(len(names), bad)
 assert not bad, bad
 """
@@ -52,7 +56,46 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     r = _run(["-c", _IMPORT_ALL], ROOT)
     assert r.returncode == 0, r.stdout + r.stderr
     count, bad = r.stdout.split(maxsplit=1)
-    assert int(count) >= 15 and bad.strip() == "[]"
+    assert int(count) >= 35 and bad.strip() == "[]"
+
+
+CLIS = ("test_enhance", "test_prevae", "test_supervised", "stream_enhance")
+
+
+@pytest.mark.parametrize("name", CLIS + ("make_synth_corpus",))
+def test_cli_help(name):
+    r = _run(["-m", f"idccrn_vae_torch.cli.{name}", "--help"], ROOT)
+    assert r.returncode == 0, r.stderr
+    assert "usage:" in r.stdout and "--out" in r.stdout
+
+
+@pytest.mark.parametrize("name", CLIS)
+def test_cli_fails_without_a_card_before_reading_data(name, tmp_path):
+    """No card and no --device cpu: the CLI exits non-zero from
+    resolve_device, before it opens a checkpoint, reads a wav or makes
+    its output dir (the inputs here are real, so reading them would
+    get further)."""
+    from idccrn_vae_tpu.data.audio_io import write_wav
+
+    wavs = tmp_path / "wavs"
+    wavs.mkdir()
+    write_wav(str(wavs / "noisy_fileid_0.wav"), np.zeros(1600, np.float32),
+              16000)
+    out = tmp_path / "out"
+    args = {"test_enhance": ["--nsvae_dir", str(tmp_path), "--noisy_dir",
+                             str(wavs), "--clean_dir", str(wavs)],
+            "test_prevae": ["--model_dir", str(tmp_path), "--test_dir",
+                            str(wavs)],
+            "test_supervised": ["--model_dir", str(tmp_path), "--noisy_dir",
+                                str(wavs), "--clean_dir", str(wavs)],
+            "stream_enhance": ["--model", "supervised", "--model_dir",
+                               str(tmp_path), "--in_dir", str(wavs)]}[name]
+    r = _run(["-m", f"idccrn_vae_torch.cli.{name}", *args, "--out_dir",
+              str(out)], ROOT, CUDA_VISIBLE_DEVICES="")
+    assert r.returncode != 0
+    assert "device='cpu'" in r.stderr and "resolve_device" in r.stderr
+    assert not out.exists()
+    assert sorted(os.listdir(tmp_path)) == ["wavs"]
 
 
 def test_chip_smoke_fails_without_a_card():

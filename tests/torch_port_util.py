@@ -90,8 +90,11 @@ def patch_jax_noise(monkeypatch, stream: NoiseStream,
     monkeypatch.setattr(f"{module}.reparameterize", fixed)
 
 
-def patch_port_noise(monkeypatch, stream: NoiseStream) -> None:
-    """Route the port's NSVAE encoder's draws through `stream`."""
+def patch_port_noise(monkeypatch, stream: NoiseStream,
+                     module: str = "idccrn_vae_torch.models.nsvae") -> None:
+    """Route the draws of the port encoder in `module` (the NSVAE
+    encoder by default, `idccrn_vae_torch.models.vae` for the VAE
+    encoder) through `stream`."""
     from idccrn_vae_torch.models.reparam import reparameterize
 
     def fixed(g, num_samples, guard="eps", noise=None, generator=None):
@@ -101,7 +104,7 @@ def patch_port_noise(monkeypatch, stream: NoiseStream) -> None:
                               noise=(torch.from_numpy(er),
                                      torch.from_numpy(ei)))
 
-    monkeypatch.setattr("idccrn_vae_torch.models.nsvae.reparameterize", fixed)
+    monkeypatch.setattr(f"{module}.reparameterize", fixed)
 
 
 def datanorm_stats(seed: int, freq_bins: int = 257):
@@ -115,3 +118,92 @@ def datanorm_stats(seed: int, freq_bins: int = 257):
 def wav_batch(seed: int, b: int, n: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return (0.1 * rng.standard_normal((b, n))).astype(np.float32)
+
+
+# ------------------------------------------------- evaluation entry points
+
+FS = 16000
+PCM16_LSB = 1.0 / 32768
+
+
+def write_test_set(root, lengths, seed: int = 0, fs: int = FS):
+    """Speech-like clean/noisy pairs of the given lengths (samples) under
+    root/clean and root/noisy (DNS '*_fileid_<i>' names), and a
+    corpus_meta.json giving utterance i the SNR bucket i % 4.
+
+    Returns (noisy_paths, clean_paths, meta_path)."""
+    import json
+    import os
+
+    from idccrn_vae_tpu.data.audio_io import write_wav
+    from idccrn_vae_tpu.data.synth import (
+        SNR_BUCKETS,
+        bucket_label,
+        mix_at_snr,
+        synth_noise,
+        synth_speech,
+    )
+
+    rng = np.random.default_rng(seed)
+    dirs = {k: os.path.join(str(root), k) for k in ("clean", "noisy")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    meta = {"buckets": [bucket_label(*b) for b in SNR_BUCKETS], "files": {}}
+    noisy_paths, clean_paths = [], []
+    for i, n in enumerate(lengths):
+        lo, hi = SNR_BUCKETS[i % len(SNR_BUCKETS)]
+        clean = synth_speech(rng, n, fs)
+        noisy, _ = mix_at_snr(clean, synth_noise(rng, n, fs)[0],
+                              float(rng.uniform(lo, hi)))
+        noisy_paths.append(os.path.join(dirs["noisy"],
+                                        f"noisy_fileid_{i}.wav"))
+        clean_paths.append(os.path.join(dirs["clean"],
+                                        f"clean_fileid_{i}.wav"))
+        write_wav(noisy_paths[-1], noisy, fs)
+        write_wav(clean_paths[-1], clean, fs)
+        meta["files"][f"val/noisy_fileid_{i}.wav"] = {
+            "bucket": bucket_label(lo, hi)}
+    meta_path = os.path.join(str(root), "corpus_meta.json")
+    with open(meta_path, "w") as f:
+        json.dump(meta, f)
+    return noisy_paths, clean_paths, meta_path
+
+
+def assert_json_close(got, want, atol: float, path: str = "") -> None:
+    """Same structure and strings; numbers within atol (None == None)."""
+    if isinstance(want, dict):
+        assert list(got) == list(want), (path, list(got), list(want))
+        for k in want:
+            assert_json_close(got[k], want[k], atol, f"{path}/{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_json_close(g, w, atol, f"{path}/{i}")
+    elif isinstance(want, (int, float)) and not isinstance(want, bool):
+        assert abs(float(got) - float(want)) <= atol, (path, got, want)
+    else:
+        assert got == want, (path, got, want)
+
+
+def read_json(*parts):
+    import json
+    import os
+
+    with open(os.path.join(*parts)) as f:
+        return json.load(f)
+
+
+def assert_wavs_within_lsb(dir_got: str, dir_want: str, names) -> None:
+    """The same files in both dirs, 16 kHz, equal lengths, samples within
+    one PCM16 step (the two sides' float outputs may round to
+    neighbouring codes)."""
+    import os
+
+    from idccrn_vae_tpu.data.audio_io import read_wav
+
+    assert sorted(os.listdir(dir_got)) == sorted(names)
+    for name in names:
+        got, fs_g = read_wav(os.path.join(dir_got, name))
+        want, fs_w = read_wav(os.path.join(dir_want, name))
+        assert fs_g == fs_w == FS and got.shape == want.shape, name
+        assert np.abs(got - want).max() <= PCM16_LSB, name
