@@ -1,8 +1,9 @@
-"""Drive the PyTorch port's serving paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving, evaluation and training paths on one
+CUDA card and check them.
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
-    python3 chip_smoke.py [--trace-dir DIR]
+    python3 chip_smoke.py [--trace-dir DIR] [--only serving|eval|train]
 
 It exercises `idccrn_vae_torch` through its entry points at the full
 reference width (channels 1-32-64-128-128-256-256, zdim 128, causal,
@@ -60,9 +61,34 @@ each CLI runs on its default device, the card:
 The scores come from random weights and say nothing of enhancement
 quality.
 
+Training, at the configs' inis (3 s segments of 481 frames):
+
+  pretrain_step    one f32 CVAE step (configs/pretrained_cvae.ini's usage
+                   line: num_samples 5, zero skips) at B=2 on the card
+                   against the CPU, TF32 off, same weights, batch and
+                   latent draws: the loss and every parameter's gradient,
+                   beside the spread between two card runs; then 10 warm
+                   Adam steps at B=16, f32 and bf16: ms per step,
+                   segments per second, peak memory
+  train_trace      torch.profiler over one warm f32 CVAE step at B=16:
+                   top kernels, device time by aten op, device ops per
+                   step, busy share
+  nsvae_step       the same for NsvaeTrainer (latent_num 2, original
+                   channels, frozen encoders unchanged), timed at B=24
+  train_cli        on a synth corpus of 16 train and 12 val utterances of
+                   6.5 s, with the three inis pointed at it: train_vae on
+                   clean speech and on noise, train_nsvae against both
+                   (2 epochs each), train_nsvae resumed for a third
+                   epoch, then test_enhance --phase 1 on the runs; finite
+                   losses and scores, the epoch counters, each CLI's wall
+                   time
+
+`--only serving|eval|train` runs one group of phases (eval brings
+serving along: the CLIs read its weights).
+
 The port has no hand-written kernel yet: every op of these paths is a
-PyTorch op (cuDNN convolution, cuBLAS matmul, cuFFT, elementwise), so
-the kernel table it prints is empty.
+PyTorch op (cuDNN convolution, cuBLAS matmul, cuFFT, elementwise, and
+autograd's backward of each), so the kernel table it prints is empty.
 
 It exits non-zero, and prints no result, when any phase fails or no
 CUDA device is visible. The last line of its output is one JSON object
@@ -1078,52 +1104,417 @@ def phase_stream_cli(dirs: dict, corpus, out_root: str, smi: str,
     _line("stream_cli", report=json.dumps(report, separators=(",", ":")))
 
 
+# --------------------------------------------------------------- training
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+TRAIN_SEGMENT = 480 * 100  # a 481-frame segment: (sequence_len - 1) * hop
+PRETRAIN_BATCH = 16  # configs/pretrained_cvae.ini [DataFrame] batch_size
+NSVAE_BATCH = 24  # configs/nsvae_config.ini [DataFrame] batch_size
+CHECK_BATCH = 2
+TRAIN_ITERS = 10
+# One f32 train step on the card against the same step on the CPU (TF32
+# off, same weights, batch and latent draws): the loss within
+# TRAIN_LOSS_REL relative; each parameter's gradient within
+# TRAIN_GRAD_REL_L2 of its L2 norm. The forward is well conditioned (its
+# loss agrees to ~1e-7), the backward is not: each train-mode BN's
+# backward subtracts the batch means of the incoming gradient, so
+# summation-order roundings grow stage by stage towards the encoder. The
+# card is not bitwise reproducible either (cuDNN and reductions pick
+# their own orders): two card runs of the same step differ by up to ~3e-3
+# in a scalar parameter's gradient, and the phase prints that spread
+# beside the card-vs-CPU error. A gradient whose norm is below 1e-6 of
+# the whole model's is zero up to rounding (a conv bias ahead of a
+# train-mode BN, which subtracts the per-channel batch mean): it is held
+# in absolute terms, to 1e-6 of the model's gradient norm.
+TRAIN_LOSS_REL = 1e-4
+TRAIN_GRAD_REL_L2 = 1e-2
+CVAE_FLAGS = ["--causal", "--zdim", "128", "--num_samples", "5",
+              "--skip_padding", "--kl_weight", "0.01",
+              "--recon_loss_weight", "1.0,1.0,0.0", "--first_use_dataset"]
+NSVAE_FLAGS = ["--causal", "--zdim", "128", "--latent_num", "2",
+               "--nsvae_model", "original", "--alpha", "1.0", "--w_kl",
+               "1.0", "--w_dismiu", "0.0", "--first_use_dataset"]
+TRAIN_UTTS = (16, 12)  # train, val utterances of 6.5 s: 2 segments each
+TRAIN_EPOCHS = 2
+
+
+def _pretrain_config(compute: str):
+    """configs/pretrained_cvae.ini's usage line: causal, zdim 128,
+    num_samples 5, --skip_padding (zero skips)."""
+    from idccrn_vae_torch.models.config import DccrnConfig
+
+    return DccrnConfig(causal=True, zdim=128, num_samples=5,
+                       skip_mode="zero", compute=compute)
+
+
+def _pretrain_trainer(compute: str, device: str):
+    """The CVAE trainer of the usage line (kl_weight 0.01, no warm-up,
+    recon weights 1,1,0, lr 3e-4); its weights come from seeded CPU
+    generators, so every call builds the same model."""
+    from idccrn_vae_torch.losses.vae_loss import PretrainVaeLoss
+    from idccrn_vae_torch.train.pretrain import PretrainTrainer
+
+    loss = PretrainVaeLoss(np.full(0, 0.01, np.float32), 0.01,
+                           recon_loss_weight=(1.0, 1.0, 0.0), num_samples=5)
+    return PretrainTrainer(_pretrain_config(compute), loss, 3e-4,
+                           seed=SEED + 60, device=device)
+
+
+def _nsvae_trainer(compute: str, device: str):
+    """configs/nsvae_config.ini's usage line: latent_num 2, original
+    channels, alpha 1, w_kl 1, w_dismiu 0, frozen pretrained encoders of
+    the CVAE geometry (whose zero skips turn the residual term off)."""
+    from idccrn_vae_torch.losses.nsvae_loss import NsvaeTrueKlLoss
+    from idccrn_vae_torch.models.config import DccrnConfig
+    from idccrn_vae_torch.train.nsvae import NsvaeTrainer
+
+    pre = _pretrain_config(compute)
+    noisy = DccrnConfig(causal=True, zdim=128, latent_num=2, num_samples=1,
+                        skip_mode="none", skip_to_use=pre.skip_to_use,
+                        compute=compute)
+    loss = NsvaeTrueKlLoss(1.0, 0.0, 1.0, 0.0, noisy, use_skips=False)
+    return NsvaeTrainer(pre, noisy, loss, 1e-3, seed=SEED + 70,
+                        device=device)
+
+
+def _grads(module) -> dict:
+    return {k: p.grad.detach().float().cpu()
+            for k, p in module.named_parameters() if p.grad is not None}
+
+
+def _check_grads(phase: str, card: dict, cpu: dict, card2: dict,
+                 **fields) -> None:
+    """Card gradients against the CPU's, per parameter and over the whole
+    model; `card2` is a second card run of the same step, whose spread
+    is printed beside the card-vs-CPU error."""
+    _check(sorted(card) == sorted(cpu) == sorted(card2) and len(cpu) > 0,
+           f"{phase}: gradients of different parameters")
+    total = sum(float(g.norm()) ** 2 for g in cpu.values()) ** 0.5
+    worst, worst_name, spread, zero = 0.0, "", 0.0, 0
+    for k, ref in cpu.items():
+        _check(bool(torch.isfinite(card[k]).all()),
+               f"{phase}: gradient of {k} is not finite")
+        if float(ref.norm()) <= 1e-6 * total:  # zero up to rounding
+            zero += 1
+            _check(float((card[k] - ref).norm()) <= 1e-6 * total,
+                   f"{phase}: gradient of {k}")
+            continue
+        spread = max(spread, float((card2[k] - card[k]).norm() / ref.norm()))
+        if _rel_l2(card[k], ref) > worst:
+            worst, worst_name = _rel_l2(card[k], ref), k
+    cat = lambda g: torch.cat([g[k].flatten() for k in sorted(cpu)])
+    _line(phase, **fields, params=len(cpu), zero_up_to_rounding=zero,
+          grad_norm=f"{total:.3e}",
+          model_rel_l2=f"{_rel_l2(cat(card), cat(cpu)):.3e}",
+          worst_grad_rel_l2=f"{worst:.3e}", worst_param=worst_name,
+          card_vs_card_worst=f"{spread:.3e}", tol=TRAIN_GRAD_REL_L2)
+    _check(worst <= TRAIN_GRAD_REL_L2,
+           f"{phase}: gradient of {worst_name} rel L2 {worst}")
+
+
+def _check_loss(phase: str, card: dict, cpu: dict, **fields) -> None:
+    got, want = float(card["total"]), float(cpu["total"])
+    _check(all(np.isfinite(float(v)) for v in card.values()),
+           f"{phase}: a loss is not finite")
+    rel = abs(got - want) / abs(want)
+    _line(phase, **fields, loss_card=f"{got:.6e}", loss_cpu=f"{want:.6e}",
+          rel_err=f"{rel:.3e}", tol=TRAIN_LOSS_REL)
+    _check(rel <= TRAIN_LOSS_REL, f"{phase}: loss rel err {rel}")
+
+
+def _time_steps(phase: str, trainer, batch, device: str, smi: str,
+                **fields) -> None:
+    """TRAIN_ITERS warm train steps (Adam) on one on-device batch, closed
+    by a synchronize: ms per step, segments per second, peak memory."""
+    gen = torch.Generator(device).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats(device)
+    for _ in range(2):  # warm-up: cuDNN plans, allocator, Adam state
+        trainer.train_step(batch, gen, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_ITERS):
+        metrics = trainer.train_step(batch, gen, 0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    _check(bool(torch.isfinite(metrics["total"])), f"{phase} loss")
+    b = (batch[0] if isinstance(batch, tuple) else batch).shape[0]
+    peak = torch.cuda.max_memory_allocated(device)
+    _line(phase, **fields, batch=b, iters=TRAIN_ITERS,
+          ms_per_step=f"{1e3 * dt / TRAIN_ITERS:.2f}",
+          segments_per_s=f"{TRAIN_ITERS * b / dt:.2f}",
+          peak_mem_gib=f"{peak / 2**30:.3f}", card=json.dumps(smi))
+
+
+def _segments(gen: torch.Generator, b: int, k: int = 1):
+    """k seeded (b, 3 s) batches on the CPU."""
+    out = tuple(0.1 * torch.randn(b, TRAIN_SEGMENT, generator=gen)
+                for _ in range(k))
+    return out[0] if k == 1 else out
+
+
+def phase_pretrain_step(device: str, smi: str):
+    """One f32 CVAE step at B=2 on the card against the CPU (loss and
+    every gradient), then warm Adam steps at the ini's B=16, f32 and
+    bf16. Returns the f32 trainer and its B=16 batch for train_trace."""
+    gen = torch.Generator().manual_seed(SEED + 61)
+    wav = _segments(gen, CHECK_BATCH)
+    cfg = _pretrain_config("f32")
+    frames = TRAIN_SEGMENT // cfg.stft.hop + 1
+    eps = tuple(torch.randn(CHECK_BATCH, cfg.num_samples, frames, cfg.zdim,
+                            generator=gen) for _ in range(2))
+    def step(dev):
+        trainer = _pretrain_trainer("f32", dev)
+        metrics = trainer.train_step(wav, None, 0, noise=tuple(
+            e.to(dev) for e in eps))
+        return metrics, {n: _grads(getattr(trainer, n))
+                         for n in ("encoder", "decoder")}
+
+    t0 = time.perf_counter()
+    with _NoTf32():
+        (m_card, card), (_, card2) = step(device), step(device)
+    m_cpu, cpu = step("cpu")
+    fields = dict(vs="cpu", tf32="off", batch=CHECK_BATCH, num_samples=5,
+                  seconds=TRAIN_SEGMENT // FS,
+                  check_s=f"{time.perf_counter() - t0:.1f}")
+    _check_loss("pretrain_step", m_card, m_cpu, **fields)
+    for name in ("encoder", "decoder"):
+        _check_grads("pretrain_step", card[name], cpu[name], card2[name],
+                     model=name, **fields)
+    batch = _segments(gen, PRETRAIN_BATCH).to(device)
+    trainers = {}
+    for compute in ("f32", "bf16"):
+        trainers[compute] = _pretrain_trainer(compute, device)
+        _time_steps("pretrain_step", trainers[compute], batch, device, smi,
+                    compute=compute, num_samples=5, optimizer="adam")
+    return trainers["f32"], batch
+
+
+def phase_nsvae_step(device: str, smi: str) -> None:
+    """One f32 NSVAE step at B=2 on the card against the CPU (loss and
+    every gradient of the noisy encoder; the frozen encoders' weights
+    and statistics unchanged), then warm Adam steps at the ini's B=24,
+    f32 and bf16. The loss reads only posteriors: no latent noise
+    enters it."""
+    gen = torch.Generator().manual_seed(SEED + 71)
+    batch = _segments(gen, CHECK_BATCH, 3)  # noisy, clean, noise
+    def step(dev):
+        trainer = _nsvae_trainer("f32", dev)
+        frozen = [{k: v.clone() for k, v in
+                   trainer.models[n].state_dict().items()}
+                  for n in ("clean_enc", "noise_enc")]
+        metrics = trainer.train_step(batch, None, 0)
+        for n, before in zip(("clean_enc", "noise_enc"), frozen):
+            _check(all(torch.equal(v, before[k]) for k, v in
+                       trainer.models[n].state_dict().items()),
+                   f"nsvae_step: the frozen {n} changed")
+        return metrics, _grads(trainer.models["noisy_enc"])
+
+    t0 = time.perf_counter()
+    with _NoTf32():
+        (m_card, card), (_, card2) = step(device), step(device)
+    m_cpu, cpu = step("cpu")
+    fields = dict(vs="cpu", tf32="off", batch=CHECK_BATCH,
+                  seconds=TRAIN_SEGMENT // FS,
+                  check_s=f"{time.perf_counter() - t0:.1f}")
+    _check_loss("nsvae_step", m_card, m_cpu, **fields)
+    _check_grads("nsvae_step", card, cpu, card2, model="noisy_enc",
+                 **fields)
+    big = tuple(x.to(device) for x in _segments(gen, NSVAE_BATCH, 3))
+    for compute in ("f32", "bf16"):
+        _time_steps("nsvae_step", _nsvae_trainer(compute, device), big,
+                    device, smi, compute=compute, latent_num=2,
+                    optimizer="adam")
+
+
+def phase_train_trace(trainer, batch, trace_dir) -> None:
+    """torch.profiler over one warm f32 CVAE step at B=16: the top
+    device kernels, and the device time by the aten op that launched
+    it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(batch.device).manual_seed(SEED)
+    trainer.train_step(batch, gen, 0)  # warm
+    torch.cuda.synchronize()
+    _profiled("train_trace", lambda: trainer.train_step(batch, gen, 0),
+              trace_dir, "train_b16_f32", top=8, batch=batch.shape[0],
+              compute="f32", what="one CVAE train step")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(batch, gen, 0)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and e.key.startswith("aten::")
+           and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in ops)
+    _line("train_trace", by="aten op", device_ms=f"{busy / 1e3:.2f}")
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d}x  {e.key[:110]}", flush=True)
+
+
+def _train_ini(name: str, path: str, user: dict, epochs: int) -> str:
+    """configs/<name> with its [User] paths pointed at `user` and
+    `epochs` epochs, saving every epoch."""
+    from idccrn_vae_torch.utils.config import load_ini
+
+    ini = load_ini(os.path.join(REPO, "configs", name))
+    for k, v in user.items():
+        ini.set("User", k, v)
+    ini.set("Training", "epochs", str(epochs))
+    ini.set("Training", "save_frequency", "1")
+    with open(path, "w") as f:
+        ini.write(f)
+    return path
+
+
+def _timed_cli(main, argv):
+    t0 = time.perf_counter()
+    out = main(argv)
+    return out, time.perf_counter() - t0
+
+
+def _check_run(phase: str, curves, best, run_dir, epochs: int,
+               last_epoch: int) -> None:
+    from idccrn_vae_torch.train.checkpoint import CheckpointManager
+
+    ckpt = CheckpointManager(run_dir)
+    meta = ckpt.load_meta()
+    _check(len(curves["train"]) == len(curves["val"]) == epochs,
+           f"{phase}: {len(curves['train'])} epochs run, want {epochs}")
+    _check(all(np.isfinite(v) for split in ("train", "val")
+               for row in curves[split] for v in row.values())
+           and np.isfinite(best), f"{phase}: a loss is not finite")
+    _check(meta["epoch"] == last_epoch and ckpt.has_best(),
+           f"{phase}: meta epoch {meta['epoch']}, want {last_epoch}")
+
+
+def phase_train_cli(root: str, smi: str) -> None:
+    """The training CLIs on the card, on a synth corpus of 16 train and
+    12 val utterances of 6.5 s (two 481-frame segments each), with the
+    configs' inis pointed at it: train_vae on clean speech and on noise,
+    train_nsvae against both (2 epochs each), train_nsvae resumed for a
+    third epoch, then test_enhance --phase 1 on the NSVAE and CVAE
+    runs."""
+    from idccrn_vae_torch.cli import test_enhance, train_nsvae, train_vae
+    from idccrn_vae_torch.data.synth import make_corpus
+
+    t0 = time.perf_counter()
+    dirs, _ = make_corpus(os.path.join(root, "corpus"), *TRAIN_UTTS,
+                          utt_seconds=6.5, seed=SEED + 80)
+    corpus_s = time.perf_counter() - t0
+    runs, walls = {}, {}
+    for kind, cfg in (("clean", "pretrained_cvae.ini"),
+                      ("noise", "pretrained_nvae.ini")):
+        ini = _train_ini(cfg, os.path.join(root, f"{kind}.ini"), {
+            "saved_root": os.path.join(root, f"{kind}_runs"),
+            "train_data_dir": dirs[f"{kind}_train"],
+            "val_data_dir": dirs[f"{kind}_val"]}, TRAIN_EPOCHS)
+        (curves, best, runs[kind]), walls[kind] = _timed_cli(
+            train_vae.main, ["--cfg_file", ini, *CVAE_FLAGS])
+        _check_run(f"train_cli {kind}", curves, best, runs[kind],
+                   TRAIN_EPOCHS, TRAIN_EPOCHS - 1)
+    user = {f"{k}_{s}_data_dir": dirs[f"{k}_{s}"]
+            for k in ("noisy", "clean", "noise") for s in ("train", "val")}
+    user.update(saved_root=os.path.join(root, "nsvae_runs"),
+                pre_clean_encoder=runs["clean"],
+                pre_noise_encoder=runs["noise"])
+    ini = _train_ini("nsvae_config.ini", os.path.join(root, "nsvae.ini"),
+                     user, TRAIN_EPOCHS)
+    (curves, best, runs["nsvae"]), walls["nsvae"] = _timed_cli(
+        train_nsvae.main, ["--cfg_file", ini, *NSVAE_FLAGS])
+    _check_run("train_cli nsvae", curves, best, runs["nsvae"], TRAIN_EPOCHS,
+               TRAIN_EPOCHS - 1)
+    ini = _train_ini("nsvae_config.ini", os.path.join(root, "nsvae3.ini"),
+                     user, TRAIN_EPOCHS + 1)
+    (curves, best, resumed), walls["resume"] = _timed_cli(
+        train_nsvae.main, ["--cfg_file", ini, *NSVAE_FLAGS[:-1], "--reload",
+                           "--reload_savedir", runs["nsvae"]])
+    _check(resumed == runs["nsvae"], "train_cli resume dir")
+    _check_run("train_cli resume", curves, best, resumed, 1, TRAIN_EPOCHS)
+    res, walls["test_enhance"] = _timed_cli(test_enhance.main, [
+        "--nsvae_dir", runs["nsvae"], "--decoder_dir", runs["clean"],
+        "--noisy_dir", dirs["noisy_val"], "--clean_dir", dirs["clean_val"],
+        "--out_dir", os.path.join(root, "enhanced")])
+    _finite_scores("train_cli test_enhance", res, TRAIN_UTTS[1])
+    _line("train_cli", corpus=f"{TRAIN_UTTS[0]}+{TRAIN_UTTS[1]}x6.5s",
+          corpus_s=f"{corpus_s:.2f}", epochs=TRAIN_EPOCHS,
+          **{f"{k}_s": f"{v:.2f}" for k, v in walls.items()},
+          card=json.dumps(smi))
+    _line("train_cli", random_init="scores say nothing of quality",
+          means=_means(res))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace-dir", default=None,
                     help="also write the profiler trace and table here")
+    ap.add_argument("--only", action="append",
+                    choices=["serving", "eval", "train"],
+                    help="run only these groups of phases (repeatable; "
+                         "default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs "
               "only on the card", file=sys.stderr)
         return 2
     device = "cuda"
+    groups = set(args.only or ("serving", "eval", "train"))
+    if "eval" in groups:  # the CLIs read the serving phases' weights
+        groups.add("serving")
     t_start = time.perf_counter()
     smi = phase_device(device)
     weights = _weights(_config("f32"))
-    wav, noise, ref = phase_f32(weights, device)
-    phase_bf16(weights, device, wav, noise, ref)
-    enh = _enhancer("bf16", weights, device)
-    phase_serving(enh)
-    phase_throughput(enh, device, smi)
-    for b in THROUGHPUT_BATCHES:
-        phase_trace(enh, device, args.trace_dir, b)
+    if "serving" in groups:
+        t_phase = time.perf_counter()
+        wav, noise, ref = phase_f32(weights, device)
+        phase_bf16(weights, device, wav, noise, ref)
+        enh = _enhancer("bf16", weights, device)
+        phase_serving(enh)
+        phase_throughput(enh, device, smi)
+        for b in THROUGHPUT_BATCHES:
+            phase_trace(enh, device, args.trace_dir, b)
 
-    dual = _dual_weights()
-    wav, eps, f32_spec, f32_outs = phase_dual_f32(dual, device)
-    phase_dual_bf16(dual, device, wav, eps, f32_spec, f32_outs)
-    dual_enh = _dual_enhancer("bf16", dual, device, "complex_mask")
-    phase_throughput(dual_enh, device, smi, iters=10,
-                     phase="dual_throughput", outtype="complex_mask")
-    phase_trace(dual_enh, device, args.trace_dir, THROUGHPUT_BATCHES[0],
-                phase="dual_trace")
-    phase_streaming(weights, device, smi, args.trace_dir)
-    supervised = phase_supervised(device, smi)
-    vae = phase_vae_recon(device)
+        dual = _dual_weights()
+        wav, eps, f32_spec, f32_outs = phase_dual_f32(dual, device)
+        phase_dual_bf16(dual, device, wav, eps, f32_spec, f32_outs)
+        dual_enh = _dual_enhancer("bf16", dual, device, "complex_mask")
+        phase_throughput(dual_enh, device, smi, iters=10,
+                         phase="dual_throughput", outtype="complex_mask")
+        phase_trace(dual_enh, device, args.trace_dir, THROUGHPUT_BATCHES[0],
+                    phase="dual_trace")
+        phase_streaming(weights, device, smi, args.trace_dir)
+        supervised = phase_supervised(device, smi)
+        vae = phase_vae_recon(device)
+        _line("serving_phases",
+              seconds=f"{time.perf_counter() - t_phase:.1f}")
 
     import tempfile
 
-    t_eval = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-        corpus = _make_corpus(os.path.join(root, "corpus"))
-        dirs = _write_checkpoints(os.path.join(root, "ckpt"), weights,
-                                  supervised, vae)
-        phase_eval_cli(dirs, corpus, root, smi)
-        phase_prevae_cli(dirs, corpus, root, smi)
-        phase_supervised_cli(dirs, corpus, root, smi)
-        phase_stream_cli(dirs, corpus, root, smi)
-    _line("eval_phases", seconds=f"{time.perf_counter() - t_eval:.1f}",
-          what="corpus, checkpoints and the four CLI phases")
+    if "eval" in groups:
+        t_eval = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+            corpus = _make_corpus(os.path.join(root, "corpus"))
+            dirs = _write_checkpoints(os.path.join(root, "ckpt"), weights,
+                                      supervised, vae)
+            phase_eval_cli(dirs, corpus, root, smi)
+            phase_prevae_cli(dirs, corpus, root, smi)
+            phase_supervised_cli(dirs, corpus, root, smi)
+            phase_stream_cli(dirs, corpus, root, smi)
+        _line("eval_phases", seconds=f"{time.perf_counter() - t_eval:.1f}",
+              what="corpus, checkpoints and the four CLI phases")
+
+    if "train" in groups:
+        t_train = time.perf_counter()
+        trainer, batch = phase_pretrain_step(device, smi)
+        phase_train_trace(trainer, batch, args.trace_dir)
+        del trainer, batch
+        phase_nsvae_step(device, smi)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
+            phase_train_cli(root, smi)
+        _line("train_phases", seconds=f"{time.perf_counter() - t_train:.1f}",
+              what="pretrain_step, train_trace, nsvae_step, train_cli")
     # no hand-written kernel is on these paths yet
     print(json.dumps({"kernels": []}))
     _line("done", seconds=f"{time.perf_counter() - t_start:.1f}")

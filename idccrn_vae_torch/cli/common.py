@@ -1,24 +1,27 @@
-"""Shared CLI plumbing of the evaluation entry points: checkpoint dirs
-and meta.json -> configs and state_dicts, test-set pairing, SNR-bucket
-flags.
+"""Shared CLI plumbing: ini + flags -> configs, loaders and run dirs
+(the training CLIs); checkpoint dirs and meta.json -> configs and
+state_dicts, test-set pairing, SNR-bucket flags (the evaluation CLIs).
 
-The evaluation part of `idccrn_vae_tpu/cli/common.py`, reading the
+The port of `idccrn_vae_tpu/cli/common.py`, reading and writing the
 port's checkpoint dirs (`train/checkpoint.py`: meta.json + best.pt /
-state.pt). The training helpers (ini loaders, model_config, save dirs)
-belong to the trainers, which are not ported yet.
+state.pt). It keeps the reference's flag conventions: --skip_to_use as a
+digit string ('012345', parsed char-wise like train.py:494-497),
+--recon_loss_weight as a comma list ('1.0,1.0,0.0', train.py:498-503).
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from idccrn_vae_torch.models.config import DccrnConfig, StftConfig
 from idccrn_vae_torch.train.checkpoint import CheckpointManager
+from idccrn_vae_torch.utils.config import IniConfig
 
 
 def add_device_arg(p: argparse.ArgumentParser) -> None:
@@ -26,6 +29,194 @@ def add_device_arg(p: argparse.ArgumentParser) -> None:
                    help="torch device to run on (default: the CUDA card; "
                         "without one the CLI exits unless given "
                         "--device cpu)")
+
+
+def parse_skip_to_use(s: str) -> Tuple[int, ...]:
+    return tuple(int(c) for c in s)
+
+
+def parse_weights(s: str) -> Tuple[float, ...]:
+    return tuple(float(w) for w in s.split(","))
+
+
+def stft_from_ini(cfg: IniConfig) -> StftConfig:
+    return StftConfig(
+        n_fft=cfg.getint("STFT", "nfft"),
+        hop=cfg.getint("STFT", "hopfrac"),
+        win_length=cfg.getint("STFT", "winlen"),
+        fs=cfg.getint("STFT", "fs"),
+    )
+
+
+def model_config(args, ini: IniConfig, latent_num: int = 1,
+                 channel_mode: str = "normal",
+                 skip_mode: Optional[str] = None) -> DccrnConfig:
+    """DccrnConfig from reference-style flags (train.py:468-490)."""
+    if skip_mode is None:
+        if getattr(args, "skipc", False):
+            skip_mode = "real"
+        elif getattr(args, "skip_padding", False):
+            skip_mode = "zero"  # "spadd"
+        else:
+            skip_mode = "none"
+    d = getattr(args, "encoder_dim_start", 32)
+    channels = (1, d, 2 * d, 4 * d, 4 * d, 8 * d, 8 * d)
+    return DccrnConfig(
+        stft=stft_from_ini(ini),
+        encoder_channels=channels,
+        causal=getattr(args, "causal", True),
+        # the --zdim flag is the reference's source of truth
+        # (train.py:474,518); [Network] z_dim is read only for callers
+        # without the flag
+        zdim=(args.zdim if hasattr(args, "zdim")
+              else ini.getint("Network", "z_dim")),
+        num_samples=getattr(args, "num_samples", 1),
+        skip_to_use=parse_skip_to_use(getattr(args, "skip_to_use", "012345")),
+        latent="fc" if getattr(args, "fclatent", False) else "sliced",
+        latent_num=latent_num,
+        channel_mode=channel_mode,
+        skip_mode=skip_mode,
+        recon_type=getattr(args, "recon_type", "real_imag"),
+        resynthesis=getattr(args, "resynthesis", False),
+        compute=getattr(args, "compute", "f32"),
+    )
+
+
+def datanorm_from_ini(ini: IniConfig, enabled: bool):
+    if not enabled:
+        return None
+    from idccrn_vae_torch.data.stats import load_stats_txt
+
+    return load_stats_txt(ini.get("User", "mean_file"),
+                          ini.get("User", "std_file"))
+
+
+def _index_cache_path(data_dir: str, name: str, split: str) -> str:
+    """Where the segment-index cache lives: IDCCRN_CACHE_DIR if set,
+    else next to the indexed corpus, not the working directory (a .txt
+    file-list corpus caches beside the list file)."""
+    root = os.environ.get("IDCCRN_CACHE_DIR")
+    if not root:
+        root = (data_dir if os.path.isdir(data_dir)
+                else os.path.dirname(os.path.abspath(data_dir)))
+    return os.path.join(root, f"{name}_{split}.json")
+
+
+def loaders_from_ini(ini: IniConfig, mode: str, first_use: bool,
+                     cache_dir: str = "."):
+    """Train/val BatchLoaders for 'single'/'pair'/'triplet' corpora (the
+    reference's three build_dataloader functions). Returns (train
+    loader, val loader, train segments, val segments).
+
+    `cache_dir` is a read-only fallback location of the index cache
+    (older runs wrote it to the working directory); new caches are
+    written to `_index_cache_path`."""
+    from idccrn_vae_torch.data.loader import BatchLoader
+    from idccrn_vae_torch.data.segments import (
+        SegmentDataset,
+        build_segment_index,
+        find_wavs,
+    )
+
+    df = "DataFrame"
+    seq_len = ini.getint(df, "sequence_len")
+    batch_size = ini.getint(df, "batch_size")
+    shuffle = ini.getboolean(df, "shuffle")
+    workers = ini.getint(df, "num_workers")
+    suffix = ini.get(df, "suffix")
+    name = ini.get(df, "dataset_name")
+    hop = ini.getint("STFT", "hopfrac")
+    fs = ini.getint("STFT", "fs")
+    trim = ini.getboolean("STFT", "trim")
+
+    def build(split):
+        if mode == "single":
+            key = "train_data_dir" if split == "train" else "val_data_dir"
+            data_dir = ini.get("User", key)
+            clean_dir = noise_dir = None
+        else:
+            data_dir = ini.get("User", f"noisy_{split}_data_dir")
+            clean_dir = ini.get("User", f"clean_{split}_data_dir")
+            noise_dir = (ini.get("User", f"noise_{split}_data_dir")
+                         if mode == "triplet" else None)
+        files = find_wavs(data_dir, suffix)
+        cache = _index_cache_path(data_dir, name, split)
+        legacy = os.path.join(cache_dir, f"{name}_{split}.json")
+        index = build_segment_index(
+            files, seq_len, hop, fs, trim=trim, cache_path=cache,
+            use_cache=not first_use, shuffle=shuffle,
+            legacy_cache_paths=() if legacy == cache else (legacy,),
+        )
+        ds = SegmentDataset(index, mode, clean_dir, noise_dir)
+        return BatchLoader(ds, batch_size, shuffle=shuffle,
+                           num_threads=max(1, workers)), len(ds)
+
+    train_loader, n_train = build("train")
+    val_loader, n_val = build("val")
+    return train_loader, val_loader, n_train, n_val
+
+
+def make_save_dir(ini: IniConfig, model_name: str) -> str:
+    root = ini.get("User", "saved_root")
+    stamp = datetime.datetime.now().strftime("%Y-%m-%d-%Hh%M")
+    path = os.path.join(root, f"{stamp}_{model_name}")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def resolve_save_dir(args, ini: IniConfig, model_name: str) -> str:
+    """Run directory of a train CLI. --reload requires --reload_savedir:
+    a fresh timestamped dir would hold no checkpoint, and the run would
+    restart from epoch 0 while the user believes it resumes."""
+    if getattr(args, "reload", False):
+        if not getattr(args, "reload_savedir", None):
+            raise SystemExit(
+                "--reload requires --reload_savedir (the existing run "
+                "directory to resume)")
+        return args.reload_savedir
+    return make_save_dir(ini, model_name)
+
+
+def add_common_train_flags(p: argparse.ArgumentParser):
+    p.add_argument("--cfg_file", type=str, required=True)
+    p.add_argument("--first_use_dataset", action="store_true")
+    p.add_argument("--causal", action="store_true")
+    p.add_argument("--reload", action="store_true")
+    p.add_argument("--reload_savedir", type=str, default=None)
+    p.add_argument("--zdim", type=int, default=128)
+    p.add_argument("--num_samples", type=int, default=1)
+    p.add_argument("--skip_to_use", type=str, default="012345")
+    p.add_argument("--recon_type", type=str, default="real_imag")
+    p.add_argument("--recon_loss_weight", type=str, default="1.0,1.0,0.0")
+    p.add_argument("--resynthesis", action="store_true")
+    p.add_argument("--compute", type=str, default="f32",
+                   choices=["f32", "bf16"])
+    p.add_argument("--encoder_dim_start", type=int, default=32,
+                   help="first conv width; channels are (1, d, 2d, 4d, "
+                        "4d, 8d, 8d) like net_config.py")
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="data-parallel device count; only 1 is ported")
+    p.add_argument("--seed", type=int, default=123,
+                   help="init/sampling seed (the reference pins 123)")
+    p.add_argument("--donate", action="store_true",
+                   help="accepted for command-line compatibility with the "
+                        "JAX CLI, and has no effect: PyTorch updates the "
+                        "weights and optimizer state in place")
+    add_device_arg(p)
+    return p
+
+
+def check_train_args(args) -> torch.device:
+    """The device of a training CLI (the card unless --device names
+    another; without a card this raises before any data is read), and
+    the flags the port does not train with yet."""
+    from idccrn_vae_torch.device import resolve_device
+
+    device = resolve_device(args.device)
+    if args.n_devices is not None and args.n_devices > 1:
+        raise SystemExit("data-parallel training (--n_devices > 1) is not "
+                         "ported to idccrn_vae_torch yet (ROADMAP item 17)")
+    return device
 
 
 def bucket_map_from_meta(meta_path: str, split: str = "val"):

@@ -1,1 +1,2 @@
-"""Host-side audio I/O, file discovery and the synthetic corpus (numpy/scipy)."""
+"""Host-side audio I/O, file discovery, segment datasets and batch
+loaders, corpus statistics files and the synthetic corpus (numpy/scipy)."""

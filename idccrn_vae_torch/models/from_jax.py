@@ -19,8 +19,11 @@ is the inverse of the JAX package's `models/torch_import.py`:
 A supervised / legacy DCCRN's names carry its module's `prefix`
 (``std_DCCRN.`` / ``DCCRN.``), as the reference's do.
 
-The BN step counter `count` has no counterpart in the port (the eval
-path never reads it) and is dropped.
+The BN step counter `count` is not in the state_dict (the reference's
+names hold none); it goes into each ComplexBatchNorm's `count` buffer,
+so a model initialised or warmed in JAX keeps the JAX copy rule (the
+first train batch replaces the running statistics only while
+count == 0).
 """
 
 from __future__ import annotations
@@ -31,9 +34,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from idccrn_vae_torch.models.modules import BN_STATS, ComplexBatchNorm
+
 _BN_PARAMS = ("gamma_rr", "gamma_ri", "gamma_ii", "beta_r", "beta_i")
-_BN_STATS = {"mean_r": "running_mean_real", "mean_i": "running_mean_imag",
-             "Vrr": "Vrr", "Vri": "Vri", "Vii": "Vii"}
 _CONV_PERM = (3, 2, 0, 1)   # (kh, kw, Ci, Co) -> (Co, Ci, kh, kw)
 _TCONV_PERM = (2, 3, 0, 1)  # (kh, kw, Ci, Co) -> (Ci, Co, kh, kw)
 
@@ -59,7 +62,7 @@ def _stages(out: dict, prefix: str, params: list, stats: list,
         out[f"{pre}.{conv}.{im}.bias"] = c["bi"]
         for k in _BN_PARAMS:
             out[f"{pre}.bn.{k}"] = p["bn"][k]
-        for k, name in _BN_STATS.items():
+        for k, name in BN_STATS.items():
             out[f"{pre}.bn.{name}"] = s[k]
         out[f"{pre}.prelu.weight"] = p["prelu"]
 
@@ -98,14 +101,28 @@ def jax_to_state_dict(variables: dict,
             for k, v in out.items()}
 
 
+def jax_bn_counts(variables: dict, prefix: str = "") -> Dict[str, int]:
+    """The BN step counters of a JAX variable tree, by the port module
+    name of their ComplexBatchNorm (``encoders.{i}.bn`` ...)."""
+    pre = f"{prefix}." if prefix else ""
+    out = {}
+    for group, name in (("encoder", "encoders"), ("decoder", "decoders")):
+        for i, s in enumerate(variables["stats"].get(group, [])):
+            if "count" in s:
+                out[f"{pre}{name}.{i}.bn"] = int(np.asarray(s["count"]))
+    return out
+
+
 def load_jax_variables(module: nn.Module, variables: dict) -> nn.Module:
     """Fill `module`'s parameters and buffers from JAX variables, in place.
 
     Every parameter and persistent buffer must be covered and every
     array must fit its tensor's size; leaves are reshaped to the port's
-    shapes (BN statistics (C,) -> (1, C, 1, 1), PReLU () -> (1,)).
+    shapes (BN statistics (C,) -> (1, C, 1, 1), PReLU () -> (1,)). The
+    BN step counters come from the stats' `count` leaves.
     """
-    arrays = jax_to_state_dict(variables, getattr(module, "prefix", ""))
+    prefix = getattr(module, "prefix", "")
+    arrays = jax_to_state_dict(variables, prefix)
     target = module.state_dict()
     missing = sorted(set(target) - set(arrays))
     extra = sorted(set(arrays) - set(target))
@@ -120,4 +137,9 @@ def load_jax_variables(module: nn.Module, variables: dict) -> nn.Module:
                              f"not fit {tuple(shape)}")
         loaded[name] = torch.tensor(arr).reshape(shape)
     module.load_state_dict(loaded, strict=True)
+    counts = jax_bn_counts(variables, prefix)
+    with torch.no_grad():
+        for name, m in module.named_modules():
+            if isinstance(m, ComplexBatchNorm) and name in counts:
+                m.count.fill_(counts[name])
     return module

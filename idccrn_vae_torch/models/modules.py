@@ -30,7 +30,10 @@ from idccrn_vae_torch.models.config import (
     decoder_plan,
     encoder_plan,
 )
-from idccrn_vae_torch.ops.batchnorm import complex_batch_norm
+from idccrn_vae_torch.ops.batchnorm import (
+    complex_batch_norm,
+    complex_batch_norm_train,
+)
 from idccrn_vae_torch.ops.conv import complex_conv2d, complex_conv_transpose2d
 from idccrn_vae_torch.ops.dense import complex_dense
 from idccrn_vae_torch.ops.lstm import complex_lstm
@@ -77,12 +80,28 @@ class ComplexConvTranspose2d(nn.Module):
         self.tconv_im = WeightBias((cin, cout, kh, kw), (cout,), fan_in, gen)
 
 
-class ComplexBatchNorm(nn.Module):
-    """Complex BN parameters and running statistics (eval path only)."""
+# JAX stats key -> ComplexBatchNorm buffer (the reference's names)
+BN_STATS = {"mean_r": "running_mean_real", "mean_i": "running_mean_imag",
+            "Vrr": "Vrr", "Vri": "Vri", "Vii": "Vii"}
 
-    def __init__(self, channels: int, gen: torch.Generator):
+
+class ComplexBatchNorm(nn.Module):
+    """Complex BN parameters, running statistics and step counter.
+
+    In train mode the forward whitens with the batch statistics and
+    updates the running ones in place (`ops/batchnorm.py`); in eval mode
+    it whitens with the running ones. `count` is the JAX package's step
+    counter (its copy rule: the first train batch replaces the running
+    statistics wholesale). It is a non-persistent buffer, so the
+    state_dict keeps the reference's names and nothing else; the
+    trainers save it beside the state_dict (`bn_counts`).
+    """
+
+    def __init__(self, channels: int, gen: torch.Generator,
+                 dis_mode: bool = False):
         super().__init__()
         c = channels
+        self.dis_mode = dis_mode
         self.gamma_rr = nn.Parameter(torch.ones(c))
         self.gamma_ri = nn.Parameter(torch.randn(c, generator=gen))
         self.gamma_ii = nn.Parameter(torch.ones(c))
@@ -94,14 +113,44 @@ class ComplexBatchNorm(nn.Module):
         self.register_buffer("Vrr", torch.ones(1, c, 1, 1))
         self.register_buffer("Vri", torch.zeros(1, c, 1, 1))
         self.register_buffer("Vii", torch.ones(1, c, 1, 1))
+        self.register_buffer("count", torch.zeros((), dtype=torch.long),
+                             persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         params = {k: getattr(self, k) for k in
                   ("gamma_rr", "gamma_ri", "gamma_ii", "beta_r", "beta_i")}
-        stats = {"mean_r": self.running_mean_real,
-                 "mean_i": self.running_mean_imag,
-                 "Vrr": self.Vrr, "Vri": self.Vri, "Vii": self.Vii}
-        return complex_batch_norm(x, params, stats, train=self.training)
+        stats = {k: getattr(self, name) for k, name in BN_STATS.items()}
+        if not self.training:
+            return complex_batch_norm(x, params, stats)
+        out, new = complex_batch_norm_train(
+            x, params, dict(stats, count=self.count), dis_mode=self.dis_mode)
+        for k, name in dict(BN_STATS, count="count").items():
+            getattr(self, name).copy_(new[k])
+        return out
+
+
+def bn_counts(module: nn.Module) -> torch.Tensor:
+    """The step counters of every ComplexBatchNorm in `module`, in module
+    order, as one (N,) tensor on the CPU."""
+    counts = [m.count for m in module.modules()
+              if isinstance(m, ComplexBatchNorm)]
+    return torch.stack(counts).cpu()
+
+
+def set_bn_counts(module: nn.Module, counts) -> None:
+    """Set the step counters of `module`'s ComplexBatchNorms (module
+    order) from a sequence or a tensor of N integers, or from one integer
+    for all of them."""
+    bns = [m for m in module.modules() if isinstance(m, ComplexBatchNorm)]
+    counts = torch.as_tensor(counts, dtype=torch.long).reshape(-1)
+    if counts.numel() == 1:
+        counts = counts.expand(len(bns))
+    if counts.numel() != len(bns):
+        raise ValueError(f"{counts.numel()} BN counters for {len(bns)} "
+                         f"complex BN layers")
+    with torch.no_grad():
+        for m, n in zip(bns, counts):
+            m.count.fill_(int(n))
 
 
 class EncoderStage(nn.Module):
@@ -195,7 +244,10 @@ def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
 
 def apply_encoder_stack(stages: Sequence[EncoderStage], x: torch.Tensor,
                         cfg: DccrnConfig) -> Tuple[torch.Tensor, list]:
-    """x: (B, F, T, 2*Cin) -> (bottleneck, skips list)."""
+    """x: (B, F, T, 2*Cin) -> (bottleneck, skips list).
+
+    BN runs in each stage's mode: batch statistics with a running update
+    in train mode, the running statistics in eval mode."""
     time_pad = 1 if cfg.causal else 0
     cdt = cfg.compute_dtype
     skips = []
@@ -238,12 +290,20 @@ def _skip_kind(cfg: DccrnConfig, i: int, num_samples: int,
 def apply_decoder_stack(stages: Sequence[DecoderStage], x: torch.Tensor,
                         skips: Sequence[torch.Tensor], cfg: DccrnConfig,
                         num_samples: int = 1,
-                        pad_mode: str = "sig") -> torch.Tensor:
-    """Eval-mode decoder: x (B*S, F_bottleneck, T, 2C) -> (B*S, F0, T', 2).
+                        pad_mode: str = "sig",
+                        skip_coin: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Decoder: x (B*S, F_bottleneck, T, 2C) -> (B*S, F0, T', 2).
 
     The skip concat cat([x, skip]) @ W runs as x @ W[:Cx] + skip @ W[Cx:]
     (two summed transposed convs), so the concatenated map is never
     materialised; W[Cx:] are the weight rows of the skip's channels.
+
+    skip_coin: skip_mode 'prob' at train time, one 0-dim bool per
+    forward (pvae_module.py:1731-1737): each skip stage takes the real
+    skip, repeated over the samples, where it is true, and otherwise
+    zeros (skip_prob 1) or a copy of the stage's own input (skip_prob 2).
+    The choice is a `torch.where` on the device, as in the JAX package.
     """
     n = cfg.num_stages
     cdt = cfg.compute_dtype
@@ -258,7 +318,13 @@ def apply_decoder_stack(stages: Sequence[DecoderStage], x: torch.Tensor,
         wr, wi = t.tconv_re.weight, t.tconv_im.weight
         br, bi = t.tconv_re.bias, t.tconv_im.bias
         kind = _skip_kind(cfg, i, num_samples, pad_mode)
-        if kind == "none":
+        if kind != "none" and skip_coin is not None:
+            rep = skips[n - 1 - i].repeat_interleave(num_samples, dim=0)
+            alt = torch.zeros_like(rep) if cfg.skip_prob == 1 else x
+            cx = x.shape[-1] // 2
+            y = (tconv(x, wr[:cx], wi[:cx], br, bi)
+                 + tconv(torch.where(skip_coin, rep, alt), wr[cx:], wi[cx:]))
+        elif kind == "none":
             y = tconv(x, wr, wi, br, bi)
         else:
             cx = x.shape[-1] // 2

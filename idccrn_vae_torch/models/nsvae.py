@@ -34,10 +34,11 @@ class NsvaeOut(NamedTuple):
 
 
 class NsvaeEncoder(nn.Module):
-    """NSVAE noisy encoder, eval mode.
+    """NSVAE noisy encoder.
 
-    Weights are drawn on the CPU from `generator` and moved to `device`
-    (CUDA unless the caller asks for another device).
+    Built in eval mode; `.train()` switches BN to batch statistics
+    (training). Weights are drawn on the CPU from `generator` and moved
+    to `device` (CUDA unless the caller asks for another device).
     """
 
     def __init__(self, cfg: DccrnConfig, device: DeviceLike = None,

@@ -88,13 +88,14 @@ def apply_fc_head(lstm_out: torch.Tensor,
 
 
 class VaeEncoder(nn.Module):
-    """Pretrain VAE encoder (CVAE on clean speech / NVAE on noise), eval
-    mode: the sliced 3*zdim LSTM head, or for ``latent="fc"`` the
-    `dense_mean` / `dense_logvar` / `dense_delta` heads, the reference's
-    names. Optional per-bin datanorm before the conv stack.
+    """Pretrain VAE encoder (CVAE on clean speech / NVAE on noise): the
+    sliced 3*zdim LSTM head, or for ``latent="fc"`` the `dense_mean` /
+    `dense_logvar` / `dense_delta` heads, the reference's names. Optional
+    per-bin datanorm before the conv stack.
 
-    Weights are drawn on the CPU from `generator` and moved to `device`
-    (CUDA unless the caller asks for another device).
+    Built in eval mode; `.train()` switches BN to batch statistics
+    (training). Weights are drawn on the CPU from `generator` and moved
+    to `device` (CUDA unless the caller asks for another device).
     """
 
     def __init__(self, cfg: DccrnConfig,
@@ -144,10 +145,12 @@ class VaeEncoder(nn.Module):
 
 
 class VaeDecoder(nn.Module):
-    """Pretrain VAE decoder, eval mode; skip handling per cfg.skip_mode.
+    """Pretrain VAE decoder; skip handling per cfg.skip_mode.
 
-    Weights are drawn on the CPU from `generator` and moved to `device`
-    (CUDA unless the caller asks for another device).
+    Built in eval mode; `.train()` switches BN to batch statistics and
+    skip_mode 'prob' to its per-forward coin. Weights are drawn on the
+    CPU from `generator` and moved to `device` (CUDA unless the caller
+    asks for another device).
     """
 
     def __init__(self, cfg: DccrnConfig,
@@ -167,21 +170,37 @@ class VaeDecoder(nn.Module):
         self.to(device)
 
     def forward(self, stft_x: torch.Tensor, z: torch.Tensor, skips,
-                num_samples: Optional[int] = None, pad_mode: str = "sig"):
+                num_samples: Optional[int] = None, pad_mode: str = "sig",
+                generator: Optional[torch.Generator] = None,
+                skip_coin=None):
         """Returns (recon_sig (B*S, L), predict_spec (B*S, F, T, 2)).
 
         dense -> unflatten -> transposed-conv stack (skips shared over
         the samples) -> recon_type branch -> ISTFT.
+
+        skip_mode 'prob' in train mode tosses one coin per forward
+        (real skips or the skip_prob alternative, see
+        `apply_decoder_stack`): `skip_coin` (a bool or a 0-dim bool
+        tensor) injects it; otherwise it is drawn from `generator`, on
+        z's device, with probability 0.5.
         """
         cfg = self.cfg
         ns = cfg.num_samples if num_samples is None else num_samples
         c, f = bottleneck_dims(cfg)
+        if cfg.skip_mode == "prob" and self.training:
+            if skip_coin is None:
+                skip_coin = torch.rand((), generator=generator,
+                                       device=z.device) < 0.5
+            skip_coin = torch.as_tensor(skip_coin, device=z.device)
+        else:
+            skip_coin = None
         dense_out = self.dense(
             z, compute_dtype=None if cfg.compute == "f32"
             else cfg.compute_dtype)  # (B*S, T, 2*C*F) float32
         p = unflatten_bottleneck(dense_out, c, f)
         out = apply_decoder_stack(self.decoders, p, skips, cfg,
-                                  num_samples=ns, pad_mode=pad_mode)
+                                  num_samples=ns, pad_mode=pad_mode,
+                                  skip_coin=skip_coin)
         return finish_reconstruction(out, stft_x, cfg, ns, datanorm_of(self))
 
 

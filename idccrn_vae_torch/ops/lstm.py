@@ -24,7 +24,9 @@ cuDNN's LSTM keeps neither split, so it is not used.
 Each step launches about 9 small device ops (the GEMM, the copy of its
 bias operand, the gates and the state update, and at bf16 the cast of
 h); at 481 frames and 2 layers that is ~9,000 launches per forward, the
-host-bound part of the serving path (PERF.md).
+host-bound part of the serving path (PERF.md). When autograd records
+(training), the steps are collected and stacked instead of written into
+a preallocated output, and the backward replays the loop step by step.
 """
 
 from __future__ import annotations
@@ -50,21 +52,37 @@ def _layer(xp: torch.Tensor, w_hh: torch.Tensor, cdt: torch.dtype,
     s, t_len, n, h4 = xp.shape
     hid = h4 // 4
     whh_t = w_hh.transpose(1, 2)
-    out = torch.empty((s, t_len, n, hid), dtype=cdt, device=xp.device)
     if carry is None:
         h = xp.new_zeros((s, n, hid))
         c = xp.new_zeros((s, n, hid))
     else:
         h, c = rounded(carry[0], cdt), carry[1].float()
+    # autograd refuses out= arguments: with a graph to record, the steps
+    # are collected and stacked (the same rounding points); without one,
+    # each h is written straight into the output buffer
+    record = torch.is_grad_enabled() and (
+        xp.requires_grad or w_hh.requires_grad or h.requires_grad
+        or c.requires_grad)
+    out = None if record else torch.empty((s, t_len, n, hid), dtype=cdt,
+                                          device=xp.device)
+    # one view per step: the backward of unbind is one stack, where
+    # indexing xp[:, t] would add a full-size gradient per step
+    xs = xp.unbind(1)
+    steps = []
     for t in range(t_len):
-        gates = torch.baddbmm(xp[:, t], h, whh_t)
-        sig = torch.sigmoid(gates)
+        gates = torch.baddbmm(xs[t], h, whh_t)
+        i, f, _, o = torch.sigmoid(gates).chunk(4, dim=-1)
         g = torch.tanh(gates[..., 2 * hid : 3 * hid])
-        c = torch.addcmul(sig[..., hid : 2 * hid] * c,
-                          sig[..., :hid], g)
-        h_t = out[:, t]
-        torch.mul(sig[..., 3 * hid :], torch.tanh(c), out=h_t)
+        c = torch.addcmul(f * c, i, g)
+        if record:
+            h_t = (o * torch.tanh(c)).to(cdt)
+            steps.append(h_t)
+        else:
+            h_t = out[:, t]
+            torch.mul(o, torch.tanh(c), out=h_t)
         h = h_t if cdt == torch.float32 else h_t.float()
+    if record:
+        out = torch.stack(steps, dim=1)
     return out, (out[:, -1], c)
 
 

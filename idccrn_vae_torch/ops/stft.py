@@ -28,22 +28,29 @@ def _padded_hann(win_length: int, n_fft: int, device: torch.device,
     """Periodic Hann of win_length, zero-padded centred to n_fft.
 
     Built in float64 on the host and cast once; cached per device and
-    dtype. The cached tensor is shared, so callers never write to it.
+    dtype. The cached tensor is shared, so callers never write to it. It
+    is built outside inference mode whatever the first caller's mode, so
+    a training step can save it for backward after a serving call has
+    cached it.
     """
     n = np.arange(win_length)
     w = 0.5 * (1.0 - np.cos(2.0 * np.pi * n / win_length))
     left = (n_fft - win_length) // 2
     out = np.zeros(n_fft, dtype=np.float64)
     out[left : left + win_length] = w
-    return torch.as_tensor(out, dtype=dtype, device=device)
+    with torch.inference_mode(False):
+        return torch.as_tensor(out, dtype=dtype, device=device)
 
 
 @functools.lru_cache(maxsize=16)
 def _ola_envelope(frames: int, n_fft: int, hop: int, win_length: int,
                   device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """Overlap-added squared window over `frames` frames, (cover,)."""
+    """Overlap-added squared window over `frames` frames, (cover,), built
+    outside inference mode like `_padded_hann`."""
     window = _padded_hann(win_length, n_fft, device, dtype)
-    return _overlap_add((window * window).expand(1, frames, n_fft), hop)[0]
+    with torch.inference_mode(False), torch.no_grad():
+        return _overlap_add((window * window).expand(1, frames, n_fft),
+                            hop)[0]
 
 
 def _overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:

@@ -1,1 +1,2 @@
-"""Checkpoints of the port (the trainers are not ported yet)."""
+"""Training: the pretraining and NSVAE trainers, their epoch loop,
+optimizers and checkpoints."""

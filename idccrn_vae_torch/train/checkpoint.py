@@ -10,16 +10,20 @@ Layout:
   <dir>/meta.json
   <dir>/state.pt      training state (the supervised family's `model`)
   <dir>/best.pt       best-val-loss snapshot of the weights
+  <dir>/loss_curves.json   per-epoch train/val metrics (trainers)
 
 ``best.pt`` holds a dict with the top-level keys of the JAX package's
 ``best`` tree — ``noisy_enc`` (and ``clean_enc`` / ``noise_enc``) for an
 NSVAE run, ``enc`` / ``dec`` for a pretrained VAE, ``encoder`` /
 ``decoder`` / ``noise_decoder`` for phase 2 — each a port state_dict
 under the reference's names; for the supervised family it is the bare
-state_dict. Files are read with ``torch.load(weights_only=True)``, so
-loading a checkpoint runs no pickled code, and land on the CPU. Unlike
-the JAX manager, loading takes no `like` template: nothing in the port
-restores into one yet (the trainers are not ported).
+state_dict. A trainer's ``state.pt`` (`train/loop.Trainer.state_dict`)
+holds ``models`` (name -> state_dict), ``optimizers`` (name -> torch
+optimizer state_dict, learning rate included) and ``bn_count`` (name ->
+the BN step counters, which no state_dict carries). Files are read with
+``torch.load(weights_only=True)``, so loading a checkpoint runs no
+pickled code, and land on the CPU; the trainers restore them by name,
+so no `like` template is needed.
 """
 
 from __future__ import annotations

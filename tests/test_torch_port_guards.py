@@ -22,10 +22,14 @@ from idccrn_vae_tpu.models.vae import VaeDecoder as JaxDecoder
 from idccrn_vae_tpu.models.vae import VaeEncoder as JaxVaeEncoder
 from idccrn_vae_torch.eval.enhance import Enhancer
 from idccrn_vae_torch.eval.streaming import StreamingEnhancer
+from idccrn_vae_torch.losses.nsvae_loss import NsvaeTrueKlLoss
+from idccrn_vae_torch.losses.vae_loss import PretrainVaeLoss
 from idccrn_vae_torch.models.dccrn import LegacyDccrn, SupervisedDccrn
 from idccrn_vae_torch.models.from_jax import load_jax_variables
 from idccrn_vae_torch.models.nsvae import NsvaeEncoder
 from idccrn_vae_torch.models.vae import VaeDecoder, VaeEncoder
+from idccrn_vae_torch.train.nsvae import NsvaeTrainer
+from idccrn_vae_torch.train.pretrain import PretrainTrainer
 from torch_port_util import configs, np_vars
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -39,7 +43,8 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "idccrn_vae_tpu",
                                     "orbax"))
-for sub in ("cli", "data", "utils", "train", "eval", "models", "ops"):
+for sub in ("cli", "data", "utils", "train", "eval", "models", "ops",
+            "losses"):
     assert any(n.startswith(f"{pkg.__name__}.{sub}.") for n in names), sub
 print(len(names), bad)
 assert not bad, bad
@@ -56,25 +61,27 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     r = _run(["-c", _IMPORT_ALL], ROOT)
     assert r.returncode == 0, r.stdout + r.stderr
     count, bad = r.stdout.split(maxsplit=1)
-    assert int(count) >= 35 and bad.strip() == "[]"
+    assert int(count) >= 53 and bad.strip() == "[]"
 
 
-CLIS = ("test_enhance", "test_prevae", "test_supervised", "stream_enhance")
+CLIS = ("test_enhance", "test_prevae", "test_supervised", "stream_enhance",
+        "train_vae", "train_nsvae")
 
 
 @pytest.mark.parametrize("name", CLIS + ("make_synth_corpus",))
 def test_cli_help(name):
     r = _run(["-m", f"idccrn_vae_torch.cli.{name}", "--help"], ROOT)
     assert r.returncode == 0, r.stderr
-    assert "usage:" in r.stdout and "--out" in r.stdout
+    flag = "--cfg_file" if name.startswith("train_") else "--out"
+    assert "usage:" in r.stdout and flag in r.stdout
 
 
 @pytest.mark.parametrize("name", CLIS)
 def test_cli_fails_without_a_card_before_reading_data(name, tmp_path):
     """No card and no --device cpu: the CLI exits non-zero from
-    resolve_device, before it opens a checkpoint, reads a wav or makes
-    its output dir (the inputs here are real, so reading them would
-    get further)."""
+    resolve_device, before it opens a checkpoint, reads a wav or an ini,
+    or makes its output dir (the inputs here are real, so reading them
+    would get further)."""
     from idccrn_vae_tpu.data.audio_io import write_wav
 
     wavs = tmp_path / "wavs"
@@ -82,6 +89,12 @@ def test_cli_fails_without_a_card_before_reading_data(name, tmp_path):
     write_wav(str(wavs / "noisy_fileid_0.wav"), np.zeros(1600, np.float32),
               16000)
     out = tmp_path / "out"
+    ini = wavs / "train.ini"
+    ini.write_text("\n".join([
+        "[User]", f"saved_root = {out}", f"train_data_dir = {wavs}",
+        f"val_data_dir = {wavs}", f"pre_clean_encoder = {tmp_path}",
+        f"pre_noise_encoder = {tmp_path}", "model_name = m", ""]))
+    train = ["--cfg_file", str(ini), "--first_use_dataset"]
     args = {"test_enhance": ["--nsvae_dir", str(tmp_path), "--noisy_dir",
                              str(wavs), "--clean_dir", str(wavs)],
             "test_prevae": ["--model_dir", str(tmp_path), "--test_dir",
@@ -89,13 +102,17 @@ def test_cli_fails_without_a_card_before_reading_data(name, tmp_path):
             "test_supervised": ["--model_dir", str(tmp_path), "--noisy_dir",
                                 str(wavs), "--clean_dir", str(wavs)],
             "stream_enhance": ["--model", "supervised", "--model_dir",
-                               str(tmp_path), "--in_dir", str(wavs)]}[name]
-    r = _run(["-m", f"idccrn_vae_torch.cli.{name}", *args, "--out_dir",
-              str(out)], ROOT, CUDA_VISIBLE_DEVICES="")
+                               str(tmp_path), "--in_dir", str(wavs)],
+            "train_vae": train, "train_nsvae": train}[name]
+    if not name.startswith("train_"):
+        args += ["--out_dir", str(out)]
+    r = _run(["-m", f"idccrn_vae_torch.cli.{name}", *args], ROOT,
+             CUDA_VISIBLE_DEVICES="")
     assert r.returncode != 0
     assert "device='cpu'" in r.stderr and "resolve_device" in r.stderr
     assert not out.exists()
     assert sorted(os.listdir(tmp_path)) == ["wavs"]
+    assert sorted(os.listdir(wavs)) == ["noisy_fileid_0.wav", "train.ini"]
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -114,6 +131,8 @@ def test_chip_smoke_fails_without_the_repo(tmp_path):
 def test_entry_points_default_to_cuda_and_do_not_fall_back():
     assert not torch.cuda.is_available()
     _, tc = configs()
+    _, noisy = configs(latent_num=2)
+    vae_loss = PretrainVaeLoss(np.zeros(0, np.float32), 1.0, num_samples=1)
     enc = NsvaeEncoder(tc, device="cpu").state_dict()
     dec = VaeDecoder(tc, device="cpu").state_dict()
     sup = SupervisedDccrn(tc, device="cpu").state_dict()
@@ -123,7 +142,10 @@ def test_entry_points_default_to_cuda_and_do_not_fall_back():
                   lambda: LegacyDccrn(tc),
                   lambda: StreamingEnhancer(tc, tc, enc, dec),
                   lambda: StreamingEnhancer(tc, tc, sup, None,
-                                            model="supervised")):
+                                            model="supervised"),
+                  lambda: PretrainTrainer(tc, vae_loss, 1e-3),
+                  lambda: NsvaeTrainer(tc, noisy, NsvaeTrueKlLoss(
+                      1.0, 0.0, 1.0, 0.0, noisy), 1e-3)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
 

@@ -10,6 +10,7 @@ import torch
 from idccrn_vae_tpu.models.nsvae import NsvaeEncoder as JaxEncoder
 from idccrn_vae_tpu.models.vae import VaeDecoder as JaxDecoder
 from idccrn_vae_torch.models.from_jax import load_jax_variables
+from idccrn_vae_torch.models.modules import ComplexBatchNorm
 from idccrn_vae_torch.models.nsvae import NsvaeEncoder, split_noisy_skips
 from idccrn_vae_torch.models.vae import VaeDecoder
 from torch_port_util import (
@@ -108,10 +109,14 @@ def test_vae_decoder_matches_jax(compute, ns, extra):
 
 
 def test_modules_refuse_train_mode_and_int8():
+    """Train mode runs (held against JAX in test_torch_port_train_ops.py
+    and test_torch_port_trainers.py); int8 is not ported."""
     _, tc = configs()
     enc = NsvaeEncoder(tc, device="cpu").train()
-    with pytest.raises(NotImplementedError, match="train-mode"):
-        enc(torch.zeros(1, 1600))
+    out = enc(torch.randn(2, 1600))
+    assert out.gauss_speech.mu_r.requires_grad
+    assert all(m.count == 1 for m in enc.modules()
+               if isinstance(m, ComplexBatchNorm))
     _, int8 = configs(compute="int8")
     with pytest.raises(NotImplementedError, match="item 19"):
         VaeDecoder(int8, device="cpu")

@@ -153,8 +153,6 @@ def test_complex_batch_norm_eval_matches_jax(compute):
                                  tstats)
     assert out.dtype == tdt
     assert_close(out, ref, compute)
-    with pytest.raises(NotImplementedError, match="train-mode"):
-        tbn.complex_batch_norm(_t(x), params, tstats, train=True)
 
 
 # ---------------------------------------------------------------- dense

@@ -30,9 +30,23 @@ BF16_REL = 2e-2
 
 
 def configs(**overrides):
-    """(JAX config, port config) with the same fields, tiny geometry."""
+    """(JAX config, port config) with the same fields, tiny geometry.
+
+    stft: optional dict of StftConfig fields (e.g. TINY_STFT), built
+    into each side's own StftConfig."""
     fields = dict(TINY, **overrides)
-    return JaxConfig(**fields), TorchConfig(**fields)
+    stft = fields.pop("stft", None)
+    if stft is None:
+        return JaxConfig(**fields), TorchConfig(**fields)
+    from idccrn_vae_tpu.models.config import StftConfig as JaxStft
+    from idccrn_vae_torch.models.config import StftConfig as TorchStft
+
+    return (JaxConfig(stft=JaxStft(**stft), **fields),
+            TorchConfig(stft=TorchStft(**stft), **fields))
+
+
+# n_fft 32: 17 frequency bins, 1 at the bottleneck of the 6 stages
+TINY_STFT = dict(n_fft=32, hop=8, win_length=16)
 
 
 def np_vars(variables):
