@@ -3,7 +3,8 @@
 
 The port of `idccrn_vae_tpu.cli.test_supervised`, with the same flags
 plus --device (default: the CUDA card). It reads a port checkpoint dir:
-best.pt for --model_type checkpoint, state.pt's `model` for final.
+best.pt for --model_type checkpoint, for final the `model` of the
+state.pt that `train_supervised` writes.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ def main(argv=None):
     if args.model_type == "checkpoint":
         state = ckpt.load_best()
     else:
-        state = ckpt.load_state()["model"]
+        state = ckpt.load_state()["models"]["model"]
     # rebuild the training-time datanorm from meta (the reference
     # re-parses it from the dir name + config mean_file,
     # supervised_dccrn/test.py:404-413)

@@ -1,3 +1,3 @@
-"""Losses of the pretraining and NSVAE stages, each implemented once
-(complex-Gaussian math in complex_gaussian.py, reconstruction terms in
-recon.py); the loss classes compose them."""
+"""Losses of the pretraining, NSVAE, phase-2 and supervised stages, each
+implemented once (complex-Gaussian math in complex_gaussian.py,
+reconstruction terms in recon.py); the loss classes compose them."""

@@ -1,4 +1,4 @@
-"""Supervised DCCRN enhancement model (the reference baseline), eval mode.
+"""Supervised DCCRN enhancement model (the reference baseline).
 
 Mirrors `idccrn_vae_tpu/models/dccrn.py`: STFT -> (datanorm) -> conv
 encoder -> complex LSTM -> complex dense -> transposed-conv decoder with
@@ -56,10 +56,14 @@ class DccrnLayers(nn.Module):
 
 
 class SupervisedDccrn(nn.Module):
-    """Supervised DCCRN, eval mode.
+    """Supervised DCCRN.
 
-    Weights are drawn on the CPU from `generator` and moved to `device`
-    (CUDA unless the caller asks for another device).
+    Built in eval mode; `.train()` switches the encoder's and the
+    decoder's BN to batch statistics with their running update
+    (training, `train/supervised.py`), as the JAX model's
+    ``apply(train=True)``. Weights are drawn on the CPU from `generator`
+    and moved to `device` (CUDA unless the caller asks for another
+    device).
     """
 
     prefix = "std_DCCRN"

@@ -2,7 +2,8 @@
 
 `load_jax_variables(module, variables)` takes a ``{"params", "stats"}``
 tree as the JAX package's `.init` builds it (`NsvaeEncoder`,
-`VaeEncoder`, `VaeDecoder`, `SupervisedDccrn`, `LegacyDccrn`), with
+`VaeEncoder`, `VaeDecoder`, `SupervisedDccrn`, `LegacyDccrn`,
+`Discriminator`), with
 numpy leaves, and fills the port module's parameters and
 buffers. The port's names are the reference's state_dict names, so this
 is the inverse of the JAX package's `models/torch_import.py`:
@@ -12,6 +13,7 @@ is the inverse of the JAX package's `models/torch_import.py`:
   encoder[i].bn.* / stats mean_r ... -> encoders.{i}.bn.* / running_mean_real ...
   encoder[i].prelu ()                -> encoders.{i}.prelu.weight (1,)
   lstm.re[k].w_ih (In,4H)            -> lstms.0.lstm_re.weight_ih_l{k} (4H,In)
+  lstm[k].w_ih (In,4H) (real LSTM)   -> lstms.0.weight_ih_l{k} (4H,In)
   dense.wr (I,O)                     -> dense.linear_read.weight (O,I)
   speech_heads.mean.wr (I,O)         -> speech_dense_mean.linear_read.weight (O,I)
   heads.mean.wr (I,O)                -> dense_mean.linear_read.weight (O,I)
@@ -67,14 +69,22 @@ def _stages(out: dict, prefix: str, params: list, stats: list,
         out[f"{pre}.prelu.weight"] = p["prelu"]
 
 
-def _lstm(out: dict, prefix: str, p: dict) -> None:
+def _real_lstm(out: dict, prefix: str, layers: list) -> None:
+    for k, layer in enumerate(layers):
+        out[f"{prefix}.weight_ih_l{k}"] = np.asarray(layer["w_ih"]).T
+        out[f"{prefix}.weight_hh_l{k}"] = np.asarray(layer["w_hh"]).T
+        out[f"{prefix}.bias_ih_l{k}"] = layer["b_ih"]
+        out[f"{prefix}.bias_hh_l{k}"] = layer["b_hh"]
+
+
+def _lstm(out: dict, prefix: str, p) -> None:
+    """A complex LSTM ({"re", "im"}) or, the discriminator's, a real one
+    (a list of layers)."""
+    if isinstance(p, (list, tuple)):
+        _real_lstm(out, prefix, p)
+        return
     for part in ("re", "im"):
-        for k, layer in enumerate(p[part]):
-            pre = f"{prefix}.lstm_{part}"
-            out[f"{pre}.weight_ih_l{k}"] = np.asarray(layer["w_ih"]).T
-            out[f"{pre}.weight_hh_l{k}"] = np.asarray(layer["w_hh"]).T
-            out[f"{pre}.bias_ih_l{k}"] = layer["b_ih"]
-            out[f"{pre}.bias_hh_l{k}"] = layer["b_hh"]
+        _real_lstm(out, f"{prefix}.lstm_{part}", p[part])
 
 
 def jax_to_state_dict(variables: dict,

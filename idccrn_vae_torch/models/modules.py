@@ -18,6 +18,7 @@ same weights on every device.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional, Sequence, Tuple
 
@@ -95,6 +96,11 @@ class ComplexBatchNorm(nn.Module):
     statistics wholesale). It is a non-persistent buffer, so the
     state_dict keeps the reference's names and nothing else; the
     trainers save it beside the state_dict (`bn_counts`).
+
+    With `update_stats` false (`frozen_bn_stats`), a train-mode forward
+    still whitens with the batch statistics but leaves the running ones
+    and the counter as they are: the JAX package's train-mode apply whose
+    new statistics the caller discards.
     """
 
     def __init__(self, channels: int, gen: torch.Generator,
@@ -102,6 +108,7 @@ class ComplexBatchNorm(nn.Module):
         super().__init__()
         c = channels
         self.dis_mode = dis_mode
+        self.update_stats = True
         self.gamma_rr = nn.Parameter(torch.ones(c))
         self.gamma_ri = nn.Parameter(torch.randn(c, generator=gen))
         self.gamma_ii = nn.Parameter(torch.ones(c))
@@ -124,9 +131,26 @@ class ComplexBatchNorm(nn.Module):
             return complex_batch_norm(x, params, stats)
         out, new = complex_batch_norm_train(
             x, params, dict(stats, count=self.count), dis_mode=self.dis_mode)
-        for k, name in dict(BN_STATS, count="count").items():
-            getattr(self, name).copy_(new[k])
+        if self.update_stats:
+            for k, name in dict(BN_STATS, count="count").items():
+                getattr(self, name).copy_(new[k])
         return out
+
+
+@contextlib.contextmanager
+def frozen_bn_stats(*modules: nn.Module):
+    """Inside the block, train-mode forwards of the ComplexBatchNorms in
+    `modules` leave their running statistics and counters alone."""
+    bns = [m for module in modules for m in module.modules()
+           if isinstance(m, ComplexBatchNorm)]
+    saved = [m.update_stats for m in bns]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, s in zip(bns, saved):
+            m.update_stats = s
 
 
 def bn_counts(module: nn.Module) -> torch.Tensor:
@@ -155,10 +179,10 @@ def set_bn_counts(module: nn.Module, counts) -> None:
 
 class EncoderStage(nn.Module):
     def __init__(self, cin: int, cout: int, cfg: DccrnConfig,
-                 gen: torch.Generator):
+                 gen: torch.Generator, dis_mode: bool = False):
         super().__init__()
         self.conv = ComplexConv2d(cin, cout, cfg.kernel, gen)
-        self.bn = ComplexBatchNorm(cout, gen)
+        self.bn = ComplexBatchNorm(cout, gen, dis_mode)
         self.prelu = nn.PReLU()
 
 
@@ -221,8 +245,11 @@ class ComplexDense(nn.Module):
                              self.linear_imag.bias, compute_dtype)
 
 
-def build_encoder_stages(cfg: DccrnConfig, gen) -> nn.ModuleList:
-    return nn.ModuleList(EncoderStage(cin, cout, cfg, gen)
+def build_encoder_stages(cfg: DccrnConfig, gen,
+                         dis_mode: bool = False) -> nn.ModuleList:
+    """dis_mode: the discriminator's BN, which copies every train batch's
+    statistics in (`ops/batchnorm.py`)."""
+    return nn.ModuleList(EncoderStage(cin, cout, cfg, gen, dis_mode)
                          for cin, cout in encoder_plan(cfg))
 
 

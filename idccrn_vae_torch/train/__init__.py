@@ -1,2 +1,2 @@
-"""Training: the pretraining and NSVAE trainers, their epoch loop,
-optimizers and checkpoints."""
+"""Training: the pretraining, NSVAE, phase-2 and supervised trainers,
+their epoch loop, optimizers and checkpoints."""

@@ -116,16 +116,25 @@ def run_training(*, epochs: int, start_epoch: int, train_loader: Iterable,
 
 
 class Trainer:
-    """What the two trainers share: their state as one dict (`state.pt`),
+    """What the trainers share: their state as one dict (`state.pt`),
     the best snapshot (`best.pt`), and `fit` around `run_training` with
     the JAX package's checkpoint, meta.json and resume rules.
 
     A subclass sets `device`, `seed`, `models` (name -> module, the
     trainer's whole state), `optimizers` (name -> optimizer),
     `schedulers` (meta.json key -> (PlateauScheduler, optimizer name))
-    and `best_models` (the names `best.pt` holds), and defines
-    `train_step`, `eval_step` and `meta_fields`.
+    and `best_models` (the names `best.pt` holds, or it overrides
+    `best_snapshot`), and defines `train_step`, `eval_step` and
+    `meta_fields`. It may set `loss_key`, the val metric that drives the
+    schedulers, the best snapshot and early stop, and override
+    `resume_meta`, which reads what it wrote into meta.json back on
+    resume.
     """
+
+    loss_key = "total"
+
+    def resume_meta(self, meta: dict) -> None:
+        """Restore trainer fields from the meta.json of a resumed run."""
 
     def state_dict(self) -> dict:
         """Weights, optimizer states and BN step counters of every model;
@@ -141,6 +150,10 @@ class Trainer:
             set_bn_counts(m, state["bn_count"][k])
         for k, o in self.optimizers.items():
             o.load_state_dict(state["optimizers"][k])
+
+    def best_snapshot(self):
+        """What `best.pt` holds: name -> state_dict of `best_models`."""
+        return {k: self.models[k].state_dict() for k in self.best_models}
 
     def batch_to_device(self, batch):
         move = lambda x: torch.as_tensor(x).to(self.device, torch.float32)
@@ -165,6 +178,7 @@ class Trainer:
             patience = int(meta["patience"])
             for key, (sched, _) in self.schedulers.items():
                 sched.load_state_dict(meta[key])
+            self.resume_meta(meta)
             logger.info("resumed from epoch %d", start_epoch)
 
         def schedulers_step(val_total):
@@ -172,8 +186,7 @@ class Trainer:
                 sched.step(val_total, self.optimizers[opt])
 
         def on_best(epoch):
-            ckpt.save_best({k: self.models[k].state_dict()
-                            for k in self.best_models})
+            ckpt.save_best(self.best_snapshot())
 
         def on_checkpoint(epoch, best, pat, curves):
             ckpt.save_state(self.state_dict())
@@ -193,7 +206,8 @@ class Trainer:
             schedulers_step=schedulers_step, on_best=on_best,
             on_checkpoint=on_checkpoint, logger=logger,
             early_stop_patience=early_stop_patience, best_val=best_val,
-            patience=patience, save_frequency=save_frequency)
+            patience=patience, save_frequency=save_frequency,
+            loss_key=self.loss_key)
 
 
 def refuse_remat(cfg, who: str) -> None:

@@ -68,10 +68,10 @@ def _init(model_cls, jc, seed, dn=None):
     return variables, load_jax_variables(module, variables).state_dict()
 
 
-def _save_both(root, name, meta, best, state=None):
-    """Write `best` (and `state`) = {key: (JAX vars, port state_dict)}, or
-    one such pair for a bare snapshot, as a JAX and a port checkpoint
-    dir under root/j/name and root/t/name."""
+def _save_both(root, name, meta, best):
+    """Write `best` = {key: (JAX vars, port state_dict)}, or one such pair
+    for a bare snapshot, as a JAX and a port checkpoint dir under
+    root/j/name and root/t/name."""
     dirs = []
     for side, ckpt_cls in ((0, JaxCkpt), (1, TorchCkpt)):
         d = os.path.join(str(root), "jt"[side], name)
@@ -80,8 +80,6 @@ def _save_both(root, name, meta, best, state=None):
         pick = lambda tree: (tree[side] if isinstance(tree, tuple)
                              else {k: v[side] for k, v in tree.items()})
         ckpt.save_best(pick(best))
-        if state is not None:
-            ckpt.save_state(pick(state))
         dirs.append(d)
     return dirs
 
@@ -226,9 +224,12 @@ def _supervised_dirs(root, cfg, dn):
     jdn = tuple(map(np.asarray, dn))
     best = _init(JaxSupervised, cfg, 13, jdn)
     final = _init(JaxSupervised, cfg, 14, jdn)
-    return _save_both(root, "sup", {"config": _asdict(cfg),
-                                    "datanorm": datanorm_to_meta(dn)},
-                      best, state={"model": final})
+    dirs = _save_both(root, "sup", {"config": _asdict(cfg),
+                                    "datanorm": datanorm_to_meta(dn)}, best)
+    # state.pt in the layout each framework's test_supervised reads
+    JaxCkpt(dirs[0]).save_state({"model": final[0]})
+    TorchCkpt(dirs[1]).save_state({"models": {"model": final[1]}})
+    return dirs
 
 
 @pytest.mark.parametrize("model_type", ["checkpoint", "final"])

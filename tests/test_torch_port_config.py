@@ -7,6 +7,7 @@ import torch
 
 from idccrn_vae_tpu.models import config as jcfg
 from idccrn_vae_torch.models import config as tcfg
+import torch_port_util  # noqa: F401  (caps torch's threads)
 
 CHANNEL_MODES = ("normal", "double", "adapt")
 SKIP_MODES = ("real", "none", "zero", "prob", "runtime")

@@ -17,20 +17,26 @@ import torch
 from idccrn_vae_tpu.models import torch_import
 from idccrn_vae_tpu.models.dccrn import LegacyDccrn as JaxLegacy
 from idccrn_vae_tpu.models.dccrn import SupervisedDccrn as JaxSupervised
+from idccrn_vae_tpu.models.discriminator import Discriminator as JaxDis
 from idccrn_vae_tpu.models.nsvae import NsvaeEncoder as JaxEncoder
 from idccrn_vae_tpu.models.vae import VaeDecoder as JaxDecoder
 from idccrn_vae_tpu.models.vae import VaeEncoder as JaxVaeEncoder
 from idccrn_vae_torch.eval.enhance import Enhancer
+from idccrn_vae_torch.data.stats import corpus_mean_std
 from idccrn_vae_torch.eval.streaming import StreamingEnhancer
 from idccrn_vae_torch.losses.nsvae_loss import NsvaeTrueKlLoss
+from idccrn_vae_torch.losses.phase2 import EteTrainSeLoss, TwoPhaseLoss
 from idccrn_vae_torch.losses.vae_loss import PretrainVaeLoss
 from idccrn_vae_torch.models.dccrn import LegacyDccrn, SupervisedDccrn
+from idccrn_vae_torch.models.discriminator import Discriminator
 from idccrn_vae_torch.models.from_jax import load_jax_variables
 from idccrn_vae_torch.models.nsvae import NsvaeEncoder
 from idccrn_vae_torch.models.vae import VaeDecoder, VaeEncoder
 from idccrn_vae_torch.train.nsvae import NsvaeTrainer
+from idccrn_vae_torch.train.phase2 import Phase2Trainer
 from idccrn_vae_torch.train.pretrain import PretrainTrainer
-from torch_port_util import configs, np_vars
+from idccrn_vae_torch.train.supervised import SupervisedTrainer
+from torch_port_util import configs, np_vars, subprocess_env
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -54,25 +60,27 @@ assert not bad, bad
 def _run(args, cwd, **env):
     return subprocess.run([sys.executable, *args], cwd=cwd, text=True,
                           capture_output=True, timeout=120,
-                          env={**os.environ, **env})
+                          env=subprocess_env(**env))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     r = _run(["-c", _IMPORT_ALL], ROOT)
     assert r.returncode == 0, r.stdout + r.stderr
     count, bad = r.stdout.split(maxsplit=1)
-    assert int(count) >= 53 and bad.strip() == "[]"
+    assert int(count) >= 60 and bad.strip() == "[]"
 
 
 CLIS = ("test_enhance", "test_prevae", "test_supervised", "stream_enhance",
-        "train_vae", "train_nsvae")
+        "train_vae", "train_nsvae", "train_phase2", "train_supervised",
+        "cal_mean_std")
 
 
 @pytest.mark.parametrize("name", CLIS + ("make_synth_corpus",))
 def test_cli_help(name):
     r = _run(["-m", f"idccrn_vae_torch.cli.{name}", "--help"], ROOT)
     assert r.returncode == 0, r.stderr
-    flag = "--cfg_file" if name.startswith("train_") else "--out"
+    flag = ("--cfg_file" if name.startswith("train_") else
+            "--mean_out" if name == "cal_mean_std" else "--out")
     assert "usage:" in r.stdout and flag in r.stdout
 
 
@@ -103,8 +111,13 @@ def test_cli_fails_without_a_card_before_reading_data(name, tmp_path):
                                 str(wavs), "--clean_dir", str(wavs)],
             "stream_enhance": ["--model", "supervised", "--model_dir",
                                str(tmp_path), "--in_dir", str(wavs)],
-            "train_vae": train, "train_nsvae": train}[name]
-    if not name.startswith("train_"):
+            "train_vae": train, "train_nsvae": train,
+            "train_phase2": train + ["--first_phase_folder", str(tmp_path)],
+            "train_supervised": train + ["--data_norm"],
+            "cal_mean_std": ["--data_dir", str(wavs), "--mean_out",
+                             str(out / "mean.txt"), "--std_out",
+                             str(out / "std.txt")]}[name]
+    if not name.startswith(("train_", "cal_")):
         args += ["--out_dir", str(out)]
     r = _run(["-m", f"idccrn_vae_torch.cli.{name}", *args], ROOT,
              CUDA_VISIBLE_DEVICES="")
@@ -145,7 +158,13 @@ def test_entry_points_default_to_cuda_and_do_not_fall_back():
                                             model="supervised"),
                   lambda: PretrainTrainer(tc, vae_loss, 1e-3),
                   lambda: NsvaeTrainer(tc, noisy, NsvaeTrueKlLoss(
-                      1.0, 0.0, 1.0, 0.0, noisy), 1e-3)):
+                      1.0, 0.0, 1.0, 0.0, noisy), 1e-3),
+                  lambda: Discriminator(tc),
+                  lambda: Phase2Trainer(tc, tc, TwoPhaseLoss(
+                      (1.0, 1.0, 0.0), 1.0, 1), 1e-3, adversarial=True),
+                  lambda: SupervisedTrainer(tc, EteTrainSeLoss(
+                      (1.0, 1.0, 0.0)), 1e-3),
+                  lambda: corpus_mean_std([])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
 
@@ -172,6 +191,8 @@ FAMILIES = {
     "supervised": ((JaxSupervised, SupervisedDccrn,
                     torch_import.import_supervised_dccrn),),
     "legacy": ((JaxLegacy, LegacyDccrn, torch_import.import_legacy_dccrn),),
+    "discriminator": ((JaxDis, Discriminator,
+                       torch_import.import_discriminator),),
 }
 
 
@@ -183,6 +204,7 @@ FAMILIES = {
     pytest.param("vae_encoder", {"latent": "fc"}, id="vae_encoder-fc"),
     pytest.param("supervised", {"lstm_hidden": 8}, id="supervised"),
     pytest.param("legacy", {"lstm_hidden": 8}, id="legacy"),
+    pytest.param("discriminator", {}, id="discriminator"),
 ])
 def test_bridge_round_trips_through_torch_import(family, extra):
     """JAX vars -> load_jax_variables -> port state_dict ->

@@ -32,6 +32,7 @@ from idccrn_vae_tpu.eval import metrics as j_met
 from idccrn_vae_tpu.eval import pesq_native as j_pesq
 from idccrn_vae_tpu.eval import report as j_rep
 from idccrn_vae_tpu.train import checkpoint as j_ckpt
+import torch_port_util  # noqa: F401  (caps torch's threads)
 
 ATOL = 1e-9
 FS = 16000

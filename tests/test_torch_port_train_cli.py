@@ -19,6 +19,10 @@ import shutil
 import numpy as np
 import pytest
 
+from torch_port_util import finite_curves as _finite_curves
+from torch_port_util import run_dir as _run_dir
+from torch_port_util import train_ini as _ini
+
 FLAGS = ["--zdim", "4", "--encoder_dim_start", "2", "--num_samples", "2",
          "--causal", "--skip_padding", "--kl_weight", "0.01",
          "--recon_loss_weight", "1.0,1.0,0.0"]
@@ -27,39 +31,6 @@ NSVAE_FLAGS = ["--zdim", "4", "--encoder_dim_start", "2", "--causal",
                "--alpha", "1.0", "--w_kl", "1.0", "--w_dismiu", "0.1"]
 RUN_FILES = ["best.pt", "loss_curves.json", "meta.json", "state.pt",
              "train.log"]
-
-
-def _ini(path, saved_root, model_name, user, epochs=2):
-    """A tiny ini in the layout of configs/*.ini: 17-frame windows of
-    1600 samples at the reference STFT, batches of 2, `epochs` epochs."""
-    lines = ["[User]", "logger_type = 1", f"saved_root = {saved_root}",
-             f"model_name = {model_name}"]
-    lines += [f"{k} = {v}" for k, v in user.items()]
-    lines += ["", "[STFT]", "winlen = 400", "nfft = 512", "hopfrac = 100",
-              "fs = 16000", "trim = False", "",
-              "[Network]", "z_dim = 4", "clean_encoder = False",
-              "noise_encoder = False", "",
-              "[Training]", "optimization = adam", "lr = 1e-3",
-              f"epochs = {epochs}", "early_stop_patience = 5",
-              "save_frequency = 1", "",
-              "[DataFrame]", f"dataset_name = {model_name}", "suffix = wav",
-              "num_workers = 1", "batch_size = 2", "shuffle = True",
-              "sequence_len = 17", ""]
-    with open(path, "w") as f:
-        f.write("\n".join(lines))
-    return str(path)
-
-
-def _run_dir(saved_root):
-    (name,) = os.listdir(saved_root)
-    return os.path.join(saved_root, name)
-
-
-def _finite_curves(curves, epochs):
-    assert len(curves["train"]) == len(curves["val"]) == epochs
-    for split in ("train", "val"):
-        for row in curves[split]:
-            assert row and all(math.isfinite(v) for v in row.values()), row
 
 
 def _train_vae(side, root, dirs, kind):

@@ -35,11 +35,11 @@ from idccrn_vae_torch.models.modules import ComplexBatchNorm
 from idccrn_vae_torch.models.reparam import CGauss as TGauss
 from idccrn_vae_torch.ops import batchnorm as tbn
 from idccrn_vae_torch.ops import lstm as tlstm
-from torch_port_util import BF16_REL, F32_TOL, assert_close, configs
+from torch_port_util import BF16_REL, GRAD_TOL, assert_close, configs
+from torch_port_util import value_and_grads as _value_and_grads
 
 jlstm = importlib.import_module("idccrn_vae_tpu.ops.lstm")
 
-GRAD_TOL = dict(atol=5e-6, rtol=5e-3)
 FIELDS = ("mu_r", "mu_i", "log_sigma", "delta_r", "delta_i")
 BN_PARAMS = ("gamma_rr", "gamma_ri", "gamma_ii", "beta_r", "beta_i")
 
@@ -54,34 +54,6 @@ def _close(port, ref, tol, what):
     assert port.shape == ref.shape, (what, port.shape, ref.shape)
     assert np.isfinite(port).all(), what
     np.testing.assert_allclose(port, ref, err_msg=what, **tol)
-
-
-def _value_and_grads(fn_j, fn_t, inputs, seed=0):
-    """Run fn_j (dict of jnp arrays -> tuple of outputs) and fn_t (dict
-    of torch tensors -> tuple of outputs) on the same inputs; compare
-    every output (F32_TOL) and the gradient of one fixed random
-    contraction of the outputs with respect to every input (GRAD_TOL).
-    Returns the port's gradients."""
-    rng = np.random.default_rng(seed)
-    jin = {k: jnp.asarray(v) for k, v in inputs.items()}
-    outs_j = fn_j(jin)
-    ws = [rng.standard_normal(np.shape(o)).astype(np.float32)
-          for o in outs_j]
-    grads_j = jax.grad(lambda d: sum(jnp.sum(o * w)
-                                     for o, w in zip(fn_j(d), ws)))(jin)
-    tin = {k: torch.tensor(v, requires_grad=True) for k, v in inputs.items()}
-    outs_t = fn_t(tin)
-    assert len(outs_t) == len(outs_j)
-    for i, (ot, oj) in enumerate(zip(outs_t, outs_j)):
-        _close(ot, oj, F32_TOL, f"output {i}")
-    sum((o * torch.from_numpy(w)).sum() for o, w in zip(outs_t, ws)
-        ).backward()
-    grads = {}
-    for k, t in tin.items():
-        g = t.grad if t.grad is not None else torch.zeros_like(t)
-        _close(g, grads_j[k], GRAD_TOL, f"grad {k}")
-        grads[k] = g
-    return grads
 
 
 def _gauss_inputs(rng, prefix, b, t, h):

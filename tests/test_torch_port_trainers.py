@@ -43,12 +43,8 @@ from idccrn_vae_tpu.train.nsvae import NsvaeTrainer as JNsvaeTrainer
 from idccrn_vae_tpu.train.pretrain import PretrainTrainer as JPretrainTrainer
 from idccrn_vae_torch.losses.nsvae_loss import NsvaeTrueKlLoss
 from idccrn_vae_torch.losses.vae_loss import PretrainVaeLoss
-from idccrn_vae_torch.models.from_jax import (
-    jax_bn_counts,
-    jax_to_state_dict,
-    load_jax_variables,
-)
-from idccrn_vae_torch.models.modules import ComplexBatchNorm, bn_counts
+from idccrn_vae_torch.models.from_jax import load_jax_variables
+from idccrn_vae_torch.models.modules import bn_counts
 from idccrn_vae_torch.train import optim as toptim
 from idccrn_vae_torch.train.checkpoint import CheckpointManager
 from idccrn_vae_torch.train.nsvae import NsvaeTrainer
@@ -57,15 +53,17 @@ from torch_port_util import (
     F32_TOL,
     TINY_STFT,
     NoiseStream,
+    check_metrics as _check_metrics,
+    check_models as _check_models,
     configs,
     datanorm_stats,
     np_vars,
     patch_jax_noise,
     patch_port_noise,
+    state_dict_of as _sd,
 )
 
 LR = 1e-2
-GRAD_TOL = dict(atol=5e-6, rtol=5e-3)
 FIT_REL = 1e-3
 B, L = 3, 800
 
@@ -73,46 +71,6 @@ B, L = 3, 800
 def _wav(seed, n=B):
     return (0.3 * np.random.default_rng(seed).standard_normal((n, L))
             ).astype(np.float32)
-
-
-def _sd(variables, prefix=""):
-    return {k: torch.from_numpy(v) for k, v in
-            jax_to_state_dict(np_vars(variables), prefix).items()}
-
-
-def _check_models(port, before, jax_after, what):
-    """Parameter deltas (GRAD_TOL), buffers (F32_TOL) and BN counters of
-    a port module after a step, against the JAX variables after it;
-    `before` is the common starting state_dict. Returns the largest
-    |delta|."""
-    want = _sd(jax_after)
-    got = port.state_dict()
-    assert sorted(got) == sorted(want)
-    names = {n for n, _ in port.named_parameters()}
-    moved = 0.0
-    for k in want:
-        want[k] = want[k].reshape(got[k].shape)
-        if k in names:
-            d_got, d_want = got[k] - before[k], want[k] - before[k]
-            np.testing.assert_allclose(d_got.numpy(), d_want.numpy(),
-                                       err_msg=f"{what} delta {k}",
-                                       **GRAD_TOL)
-            moved = max(moved, float(d_want.abs().max()))
-        else:
-            np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
-                                       err_msg=f"{what} {k}", **F32_TOL)
-    counts = jax_bn_counts(np_vars(jax_after))
-    for name, m in port.named_modules():
-        if isinstance(m, ComplexBatchNorm):
-            assert int(m.count) == counts[name], (what, name)
-    return moved
-
-
-def _check_metrics(got, want, tol=F32_TOL):
-    assert set(got) == set(want)
-    for k in want:
-        np.testing.assert_allclose(float(got[k]), float(want[k]),
-                                   err_msg=k, **tol)
 
 
 # --------------------------------------------------------------- pretrain

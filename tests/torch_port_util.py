@@ -12,9 +12,18 @@ Tolerances:
     when the f32 accumulator is rounded), so single elements may differ
     by a bf16 ulp (2**-8 relative) at each stage; across the network
     that stays well under 2% of the output's range.
+
+Threads: importing this module caps torch's intra-op threads at the
+cores per pytest-xdist worker (`TORCH_THREADS`), and `subprocess_env`
+gives a subprocess the same cap. Left at its default, every worker runs
+torch with one thread per core, and under `-n 6` the workers' thread
+pools oversubscribe the cores many times over (a 27 s test then takes
+minutes).
 """
 
 from __future__ import annotations
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -24,8 +33,23 @@ import torch
 from idccrn_vae_tpu.models.config import DccrnConfig as JaxConfig
 from idccrn_vae_torch.models.config import DccrnConfig as TorchConfig
 
+TORCH_THREADS = max(1, (os.cpu_count() or 1)
+                    // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
+torch.set_num_threads(TORCH_THREADS)
+
+
+def subprocess_env(**extra) -> dict:
+    """The environment of a subprocess a port test starts: this process's,
+    with OpenMP's and MKL's thread counts at TORCH_THREADS, plus `extra`."""
+    threads = str(TORCH_THREADS)
+    return {**os.environ, "OMP_NUM_THREADS": threads,
+            "MKL_NUM_THREADS": threads, **extra}
+
+
 TINY = dict(encoder_channels=(1, 2, 2, 4, 4, 4, 4), zdim=4, num_samples=1)
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
+# a parameter's delta after one SGD step (tests/test_oracle_train_step.py)
+GRAD_TOL = dict(atol=5e-6, rtol=5e-3)
 BF16_REL = 2e-2
 
 
@@ -121,6 +145,102 @@ def patch_port_noise(monkeypatch, stream: NoiseStream,
     monkeypatch.setattr(f"{module}.reparameterize", fixed)
 
 
+class FixedNoise:
+    """The same draws for every call of one shape: a JAX step that runs
+    its encoder twice in one trace (phase 2's D-update batches) and the
+    port's single pass then see the same latent samples."""
+
+    def __init__(self, seed: int = 123):
+        self.seed = seed
+        self.draws = {}
+
+    def __call__(self, b: int, s: int, t: int, h: int):
+        key = (b, s, t, h)
+        if key not in self.draws:
+            self.draws[key] = NoiseStream(self.seed)(b, s, t, h)
+        return self.draws[key]
+
+
+# ------------------------------------------------------------ train steps
+
+
+def state_dict_of(variables, prefix=""):
+    """JAX variables -> a port state_dict of torch tensors."""
+    from idccrn_vae_torch.models.from_jax import jax_to_state_dict
+
+    return {k: torch.from_numpy(v) for k, v in
+            jax_to_state_dict(np_vars(variables), prefix).items()}
+
+
+def check_models(port, before, jax_after, what, prefix=""):
+    """Parameter deltas (GRAD_TOL), buffers (F32_TOL) and BN counters of
+    a port module after a step, against the JAX variables after it;
+    `before` is the common starting state_dict, `prefix` the module's
+    state_dict prefix (a supervised DCCRN's). Returns the largest
+    |delta|."""
+    from idccrn_vae_torch.models.from_jax import jax_bn_counts
+    from idccrn_vae_torch.models.modules import ComplexBatchNorm
+
+    want = state_dict_of(jax_after, prefix)
+    got = port.state_dict()
+    assert sorted(got) == sorted(want)
+    names = {n for n, _ in port.named_parameters()}
+    moved = 0.0
+    for k in want:
+        want[k] = want[k].reshape(got[k].shape)
+        if k in names:
+            d_got, d_want = got[k] - before[k], want[k] - before[k]
+            np.testing.assert_allclose(d_got.numpy(), d_want.numpy(),
+                                       err_msg=f"{what} delta {k}",
+                                       **GRAD_TOL)
+            moved = max(moved, float(d_want.abs().max()))
+        else:
+            np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                       err_msg=f"{what} {k}", **F32_TOL)
+    counts = jax_bn_counts(np_vars(jax_after), prefix)
+    for name, m in port.named_modules():
+        if isinstance(m, ComplexBatchNorm):
+            assert int(m.count) == counts[name], (what, name)
+    return moved
+
+
+def value_and_grads(fn_j, fn_t, inputs, seed=0):
+    """Run fn_j (dict of jnp arrays -> tuple of outputs) and fn_t (dict
+    of torch tensors -> tuple of outputs) on the same inputs; compare
+    every output (F32_TOL) and the gradient of one fixed random
+    contraction of the outputs with respect to every input (GRAD_TOL).
+    Returns the port's gradients."""
+    rng = np.random.default_rng(seed)
+    jin = {k: jnp.asarray(v) for k, v in inputs.items()}
+    outs_j = fn_j(jin)
+    ws = [rng.standard_normal(np.shape(o)).astype(np.float32)
+          for o in outs_j]
+    grads_j = jax.grad(lambda d: sum(jnp.sum(o * w)
+                                     for o, w in zip(fn_j(d), ws)))(jin)
+    tin = {k: torch.tensor(v, requires_grad=True) for k, v in inputs.items()}
+    outs_t = fn_t(tin)
+    assert len(outs_t) == len(outs_j)
+    for i, (ot, oj) in enumerate(zip(outs_t, outs_j)):
+        assert_close(ot, oj)
+    sum((o * torch.from_numpy(w)).sum() for o, w in zip(outs_t, ws)
+        ).backward()
+    grads = {}
+    for k, t in tin.items():
+        g = t.grad if t.grad is not None else torch.zeros_like(t)
+        np.testing.assert_allclose(to_np(g), to_np(grads_j[k]),
+                                   err_msg=f"grad {k}", **GRAD_TOL)
+        grads[k] = g
+    return grads
+
+
+def check_metrics(got, want, tol=F32_TOL):
+    """The same metric keys, each value within `tol`."""
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(float(got[k]), float(want[k]),
+                                   err_msg=k, **tol)
+
+
 def datanorm_stats(seed: int, freq_bins: int = 257):
     """Per-bin (mean, std), each (F, 2) float32, std > 0."""
     rng = np.random.default_rng(seed)
@@ -132,6 +252,127 @@ def datanorm_stats(seed: int, freq_bins: int = 257):
 def wav_batch(seed: int, b: int, n: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return (0.1 * rng.standard_normal((b, n))).astype(np.float32)
+
+
+# ------------------------------------------------------- phase-2 trainers
+
+PHASE2_LR = 1e-2
+PHASE2_B, PHASE2_L = 3, 800
+_PHASE2_JAX = {}
+
+
+def phase2_wav(seed, n=PHASE2_B):
+    return (0.3 * np.random.default_rng(seed).standard_normal(
+        (n, PHASE2_L))).astype(np.float32)
+
+
+def phase2_batch(seed):
+    """(noisy, clean, noise) waveforms of a phase-2 training batch."""
+    return tuple(phase2_wav(seed + k) for k in range(3))
+
+
+def clone_state(module):
+    return {k: v.clone() for k, v in module.state_dict().items()}
+
+
+def phase2_pair(monkeypatch, sgd=True, adversarial=False, d_step=1,
+                decode_update="all_decode", latent_num=1, enc_kw=None,
+                dec_kw=None):
+    """(JAX trainer, JAX state, port trainer) of phase 2 from the same
+    weights, tiny geometry; the encoder's latent draws patched on both
+    sides (`FixedNoise`). JAX trainers that differ only in d_step are one
+    object (d_step is read outside its jitted step), so the d_step cases
+    share its compiled programs."""
+    import optax
+
+    from idccrn_vae_tpu.losses import phase2 as jloss
+    from idccrn_vae_tpu.train.phase2 import Phase2Trainer as JPhase2Trainer
+    from idccrn_vae_torch.losses import phase2 as tloss
+    from idccrn_vae_torch.models.from_jax import load_jax_variables
+    from idccrn_vae_torch.train.phase2 import (
+        Phase2Trainer,
+        trained_parameters,
+    )
+
+    lr = PHASE2_LR
+    enc_kw = dict(latent_num=latent_num, **(enc_kw or {}))
+    dec_kw = dict(latent_num=latent_num, skip_mode="runtime",
+                  recon_type="mask", **(dec_kw or {}))
+    jenc, tenc = configs(stft=TINY_STFT, **enc_kw)
+    jdec, tdec = configs(stft=TINY_STFT, **dec_kw)
+    kw = dict(recon_loss_weight=(1.0, 0.5, 0.2), alpha=1.0,
+              latent_num=latent_num)
+    trainer_kw = dict(adversarial=adversarial, dis_lr=2 * lr, d_step=d_step,
+                      decode_update=decode_update)
+    key = repr((sgd, enc_kw, dec_kw, adversarial, decode_update))
+    if key not in _PHASE2_JAX:
+        jtr = JPhase2Trainer(jenc, jdec, jloss.TwoPhaseLoss(**kw), lr,
+                             **trainer_kw)
+        if sgd:
+            jtr.tx = optax.sgd(lr)
+            jtr.tx_dis = optax.sgd(2 * lr) if adversarial else None
+        _PHASE2_JAX[key] = jtr
+    jtr = _PHASE2_JAX[key]
+    jtr.d_step, jtr._batch_counter = d_step, 0
+    state = jtr.init_state()
+    ttr = Phase2Trainer(tenc, tdec, tloss.TwoPhaseLoss(**kw), lr,
+                        device="cpu", **trainer_kw)
+    assert sorted(ttr.models) == sorted(state["models"])
+    for name, m in ttr.models.items():
+        load_jax_variables(m, np_vars(state["models"][name]))
+    if sgd:
+        ttr.opt = torch.optim.SGD(
+            [p for d in ttr.decoders.values()
+             for p in trained_parameters(d, decode_update)], lr=lr)
+        if adversarial:
+            ttr.opt_dis = torch.optim.SGD(ttr.dis.parameters(), lr=2 * lr)
+    noise = FixedNoise(5)
+    patch_jax_noise(monkeypatch, noise)
+    patch_port_noise(monkeypatch, noise)
+    return jtr, state, ttr
+
+
+# ------------------------------------------------------- training CLIs
+
+
+def train_ini(path, saved_root, model_name, user, epochs=2):
+    """A tiny ini in the layout of configs/*.ini: 17-frame windows of
+    1600 samples at the reference STFT, batches of 2, `epochs` epochs,
+    a checkpoint every epoch."""
+    lines = ["[User]", "logger_type = 1", f"saved_root = {saved_root}",
+             f"model_name = {model_name}"]
+    lines += [f"{k} = {v}" for k, v in user.items()]
+    lines += ["", "[STFT]", "winlen = 400", "nfft = 512", "hopfrac = 100",
+              "fs = 16000", "trim = False", "",
+              "[Network]", "z_dim = 4", "clean_encoder = False",
+              "noise_encoder = False", "",
+              "[Training]", "optimization = adam", "lr = 1e-3",
+              f"epochs = {epochs}", "early_stop_patience = 5",
+              "save_frequency = 1", "",
+              "[DataFrame]", f"dataset_name = {model_name}", "suffix = wav",
+              "num_workers = 1", "batch_size = 2", "shuffle = True",
+              "sequence_len = 17", ""]
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+    return str(path)
+
+
+def run_dir(saved_root):
+    """The one run directory a training CLI made under `saved_root`."""
+    import os
+
+    (name,) = os.listdir(saved_root)
+    return os.path.join(saved_root, name)
+
+
+def finite_curves(curves, epochs):
+    """`epochs` rows of train and val metrics, every value finite."""
+    import math
+
+    assert len(curves["train"]) == len(curves["val"]) == epochs
+    for split in ("train", "val"):
+        for row in curves[split]:
+            assert row and all(math.isfinite(v) for v in row.values()), row
 
 
 # ------------------------------------------------- evaluation entry points
