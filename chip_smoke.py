@@ -38,6 +38,14 @@ one summary line each:
                    streamer card against CPU
   vae_recon        VaeEncoder -> VaeDecoder (num_samples 5, zero skips,
                    datanorm) card against CPU
+  dnsmos           the five DNSMOS graphs on the card (eval/onnx_exec.py's
+                   torch runner) on the golden signal and on seeded
+                   noise against the numpy executor on the CPU, 1e-4 of
+                   max |out| per output, TF32 left on around the runner
+                   (which turns it off for its run) and, for contrast,
+                   the error with TF32 on; every node output on the
+                   card; score_array's raw scores against the pinned
+                   goldens; warm ms per 9.01 s window
 
 The evaluation entry points, on a corpus of 24 utterances of 1.5-6 s from
 `data/synth.make_corpus` (four SNR buckets), with the weights above
@@ -50,6 +58,9 @@ each CLI runs on its default device, the card:
                    (same seed) to one PCM16 step; the wall-time split
                    (load, enhance, score enhanced, score noisy), RTFx of
                    the enhance part and of the whole CLI
+  dnsmos_cli       cli.dnsmos on the card over eval_cli's wavs, with a
+                   CSV: each row against the torch runner on the CPU,
+                   every score to 1e-4 relative; wall per file
   prevae_cli       cli.test_prevae over the clean split, num_samples 10:
                    finite scores and the latent_diag keys
   supervised_cli   cli.test_supervised: each wav equal to SupervisedDccrn
@@ -758,6 +769,123 @@ def phase_vae_recon(device: str):
     return cfg, dn, enc_state, dec_state
 
 
+# ------------------------------------------------------------------ DNSMOS
+
+DNSMOS_GRAPHS = ("DNSMOS/model_v8.onnx", "DNSMOS/sig.onnx",
+                 "DNSMOS/bak_ovr.onnx", "DNSMOS/sig_bak_ovr.onnx",
+                 "pDNSMOS/sig_bak_ovr.onnx")
+DNSMOS_REL = 1e-4  # card against the numpy executor, per output
+DNSMOS_GOLDENS = {"OVRL_raw": 1.612839, "SIG_raw": 1.693456,
+                  "BAK_raw": 2.387266, "P808_MOS": 2.182581}
+DNSMOS_WINDOW = int(9.01 * FS)
+
+
+def _golden_signal() -> np.ndarray:
+    """AM tone + noise, seed 42, 9.01 s (tests/test_dnsmos.py:118-123)."""
+    rng = np.random.default_rng(42)
+    t = np.arange(DNSMOS_WINDOW) / FS
+    return (0.4 * np.sin(2 * np.pi * 300 * t)
+            * (1 + 0.8 * np.sin(2 * np.pi * 2 * t))
+            + 0.05 * rng.standard_normal(len(t))).astype(np.float32)
+
+
+def _dnsmos_feeds(rel: str):
+    """{kind: input} of one graph: from the golden signal and from seeded
+    noise. The primary models take 9.01 s of audio, model_v8 the P.808
+    mel features, sig/bak_ovr a (1, 900, 161) map (the golden signal's
+    log10 power spectrum over 320-sample frames, hop 160)."""
+    from idccrn_vae_torch.eval.dnsmos import audio_melspec
+
+    rng = np.random.default_rng(SEED + 60)
+    noise = (0.1 * rng.standard_normal(DNSMOS_WINDOW)).astype(np.float32)
+    golden = _golden_signal()
+    if rel.endswith("sig_bak_ovr.onnx"):
+        return {"golden": golden[None], "noise": noise[None]}
+    if rel.endswith("model_v8.onnx"):
+        return {k: audio_melspec(x[:-160])[None]
+                for k, x in (("golden", golden), ("noise", noise))}
+    idx = np.arange(900)[:, None] * 160 + np.arange(320)[None]
+    frames = golden[idx] * np.hanning(320)
+    logpow = np.log10(np.abs(np.fft.rfft(frames, axis=1)) ** 2 + 1e-12)
+    return {"golden": logpow.astype(np.float32)[None],
+            "noise": rng.standard_normal((1, 900, 161)).astype(np.float32)}
+
+
+def phase_dnsmos(device: str, smi: str, iters: int = 20) -> None:
+    """The five DNSMOS graphs on the card (the torch graph runner) against
+    the numpy executor on the CPU, per output max |card - numpy| <=
+    1e-4 * max |numpy|; the runner with TF32 left on around it (the
+    session turns it off for its run and restores it) and, to show what
+    that guards, the same graph run with TF32 on; every node output a
+    cuda tensor; score_array's raw scores against the pinned goldens;
+    warm ms per 9.01 s window, per model and for score_array."""
+    from idccrn_vae_torch.eval import dnsmos
+    from idccrn_vae_torch.eval.onnx_exec import InferenceSession, _run_torch
+
+    base = os.path.join(os.path.dirname(dnsmos.__file__), os.pardir,
+                        "assets", "dnsmos")
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for rel in DNSMOS_GRAPHS:
+            path = os.path.join(base, rel)
+            card = InferenceSession(path, device=device)
+            plain = InferenceSession(path, backend="numpy")
+            worst = 0.0
+            for kind, x in _dnsmos_feeds(rel).items():
+                feed = {"input_1": x}
+                env = card.run_nodes(feed)
+                _check(all(isinstance(env[o], torch.Tensor) and env[o].is_cuda
+                           for nd in card.nodes for o in nd.outputs),
+                       f"dnsmos {rel}: a node output is off the card")
+                (got,) = card.run(None, feed)
+                _check(torch.backends.cudnn.allow_tf32,
+                       "dnsmos: the TF32 flag was not restored")
+                (want,) = plain.run(None, feed)
+                _check(got.shape == want.shape and np.isfinite(got).all(),
+                       f"dnsmos {rel} {kind}: {got.shape} {want.shape}")
+                err = float(np.abs(got - want).max())
+                scale = float(np.abs(want).max())
+                worst = max(worst, err / scale)
+                _check(err <= DNSMOS_REL * scale,
+                       f"dnsmos {rel} {kind} rel err {err / scale}")
+            with torch.inference_mode():  # TF32 left on: what the lock
+                env = dict(card.inits)  # and full_f32 keep out
+                env["input_1"] = torch.from_numpy(feed["input_1"]).to(device)
+                tf32 = _run_torch(card.nodes, env)[card.output_names[0]]
+            tf32_err = float(np.abs(tf32.cpu().numpy() - want).max()) / scale
+            for _ in range(2):
+                card.run(None, feed)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                card.run(None, feed)  # returns host arrays: synchronized
+            ms = 1e3 * (time.perf_counter() - t0) / iters
+            nodes = sum(len(nd.outputs) for nd in card.nodes)
+            _line("dnsmos", graph=rel, nodes=nodes, vs="numpy cpu",
+                  max_rel_err=f"{worst:.3e}", tol=DNSMOS_REL,
+                  tf32_on_rel_err=f"{tf32_err:.3e}",
+                  warm_ms_per_window=f"{ms:.2f}", card=json.dumps(smi))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+    scorer = dnsmos.ComputeScore(*dnsmos.default_model_paths(False),
+                                 device=device)
+    golden = _golden_signal()
+    out = scorer.score_array(golden, FS)
+    for k, v in DNSMOS_GOLDENS.items():
+        _check(abs(out[k] - v) <= 1e-4, f"dnsmos golden {k} {out[k]} {v}")
+    t0 = time.perf_counter()
+    for _ in range(iters // 2):
+        scorer.score_array(golden, FS)
+    ms = 1e3 * (time.perf_counter() - t0) / (iters // 2)
+    _line("dnsmos", score_array="golden 9.01 s", num_hops=out["num_hops"],
+          **{k: f"{out[k]:.6f}" for k in DNSMOS_GOLDENS}, goldens_tol=1e-4,
+          warm_ms_per_window=f"{ms:.2f}", card=json.dumps(smi))
+
+
 # -------------------------------------------------------- evaluation CLIs
 
 EVAL_UTTS = 24
@@ -953,6 +1081,48 @@ def phase_eval_cli(dirs: dict, corpus, out_root: str, smi: str,
     _line("eval_cli", random_weights="scores say nothing of quality",
           enhanced_means=_means(res),
           noisy_means=_means({"summary": res["noisy_summary"]}))
+
+
+DNSMOS_KEYS = ("OVRL_raw", "SIG_raw", "BAK_raw", "OVRL", "SIG", "BAK",
+               "P808_MOS")
+
+
+def phase_dnsmos_cli(out_root: str, smi: str, device=None) -> None:
+    """cli/dnsmos on the card over the wavs eval_cli wrote, with a CSV;
+    each row against the CPU executor's (the torch runner on the CPU)
+    score of the same file, every score to 1e-4 relative; wall per
+    file."""
+    import csv
+
+    from idccrn_vae_torch.cli import dnsmos as dnsmos_cli
+    from idccrn_vae_torch.eval.dnsmos import ComputeScore, default_model_paths
+
+    wav_dir = os.path.join(out_root, "eval_cli", "enhanced")
+    csv_path = os.path.join(out_root, "dnsmos.csv")
+    t0 = time.perf_counter()
+    dnsmos_cli.main(["-t", wav_dir, "-o", csv_path, *_device_args(device)])
+    cli_s = time.perf_counter() - t0
+    with open(csv_path) as f:
+        rows = list(csv.DictReader(f))
+    n = len(os.listdir(wav_dir))
+    _check(len(rows) == n, f"dnsmos_cli scored {len(rows)} of {n} files")
+    cpu = ComputeScore(*default_model_paths(False), device="cpu")
+    worst, hops = 0.0, 0
+    for row in rows:
+        want = cpu(row["filename"])
+        hops += want["num_hops"]
+        _check(int(row["num_hops"]) == want["num_hops"],
+               f"dnsmos_cli hops of {row['filename']}")
+        for k in DNSMOS_KEYS:
+            got = float(row[k])
+            _check(np.isfinite(got), f"dnsmos_cli {k} is not finite")
+            rel = abs(got - want[k]) / abs(want[k])
+            worst = max(worst, rel)
+            _check(rel <= DNSMOS_REL, f"dnsmos_cli {k} rel err {rel}")
+    _line("dnsmos_cli", files=n, windows=hops, vs="torch cpu",
+          max_rel_err=f"{worst:.3e}", tol=DNSMOS_REL, cli_s=f"{cli_s:.3f}",
+          ms_per_file=f"{1e3 * cli_s / n:.1f}",
+          ms_per_window=f"{1e3 * cli_s / hops:.2f}", card=json.dumps(smi))
 
 
 def phase_prevae_cli(dirs: dict, corpus, out_root: str, smi: str,
@@ -1744,6 +1914,7 @@ def main(argv=None) -> int:
         phase_streaming(weights, device, smi, args.trace_dir)
         supervised = phase_supervised(device, smi)
         vae = phase_vae_recon(device)
+        phase_dnsmos(device, smi)
         _line("serving_phases",
               seconds=f"{time.perf_counter() - t_phase:.1f}")
 
@@ -1756,6 +1927,7 @@ def main(argv=None) -> int:
             dirs = _write_checkpoints(os.path.join(root, "ckpt"), weights,
                                       supervised, vae)
             phase_eval_cli(dirs, corpus, root, smi)
+            phase_dnsmos_cli(root, smi)
             phase_prevae_cli(dirs, corpus, root, smi)
             phase_supervised_cli(dirs, corpus, root, smi)
             phase_stream_cli(dirs, corpus, root, smi)

@@ -23,6 +23,8 @@ from idccrn_vae_tpu.models.vae import VaeDecoder as JaxDecoder
 from idccrn_vae_tpu.models.vae import VaeEncoder as JaxVaeEncoder
 from idccrn_vae_torch.eval.enhance import Enhancer
 from idccrn_vae_torch.data.stats import corpus_mean_std
+from idccrn_vae_torch.eval.dnsmos import ComputeScore, default_model_paths
+from idccrn_vae_torch.eval.onnx_exec import InferenceSession
 from idccrn_vae_torch.eval.streaming import StreamingEnhancer
 from idccrn_vae_torch.losses.nsvae_loss import NsvaeTrueKlLoss
 from idccrn_vae_torch.losses.phase2 import EteTrainSeLoss, TwoPhaseLoss
@@ -35,6 +37,7 @@ from idccrn_vae_torch.models.vae import VaeDecoder, VaeEncoder
 from idccrn_vae_torch.train.nsvae import NsvaeTrainer
 from idccrn_vae_torch.train.phase2 import Phase2Trainer
 from idccrn_vae_torch.train.pretrain import PretrainTrainer
+from idccrn_vae_torch.tools import e2e_train
 from idccrn_vae_torch.train.supervised import SupervisedTrainer
 from torch_port_util import configs, np_vars, subprocess_env
 
@@ -50,7 +53,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "idccrn_vae_tpu",
                                     "orbax"))
 for sub in ("cli", "data", "utils", "train", "eval", "models", "ops",
-            "losses"):
+            "losses", "tools"):
     assert any(n.startswith(f"{pkg.__name__}.{sub}.") for n in names), sub
 print(len(names), bad)
 assert not bad, bad
@@ -72,7 +75,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 CLIS = ("test_enhance", "test_prevae", "test_supervised", "stream_enhance",
         "train_vae", "train_nsvae", "train_phase2", "train_supervised",
-        "cal_mean_std")
+        "cal_mean_std", "dnsmos")
 
 
 @pytest.mark.parametrize("name", CLIS + ("make_synth_corpus",))
@@ -80,7 +83,8 @@ def test_cli_help(name):
     r = _run(["-m", f"idccrn_vae_torch.cli.{name}", "--help"], ROOT)
     assert r.returncode == 0, r.stderr
     flag = ("--cfg_file" if name.startswith("train_") else
-            "--mean_out" if name == "cal_mean_std" else "--out")
+            "--mean_out" if name == "cal_mean_std" else
+            "--testset_dir" if name == "dnsmos" else "--out")
     assert "usage:" in r.stdout and flag in r.stdout
 
 
@@ -116,8 +120,9 @@ def test_cli_fails_without_a_card_before_reading_data(name, tmp_path):
             "train_supervised": train + ["--data_norm"],
             "cal_mean_std": ["--data_dir", str(wavs), "--mean_out",
                              str(out / "mean.txt"), "--std_out",
-                             str(out / "std.txt")]}[name]
-    if not name.startswith(("train_", "cal_")):
+                             str(out / "std.txt")],
+            "dnsmos": ["-t", str(wavs), "-o", str(out / "dnsmos.csv")]}[name]
+    if not name.startswith(("train_", "cal_", "dnsmos")):
         args += ["--out_dir", str(out)]
     r = _run(["-m", f"idccrn_vae_torch.cli.{name}", *args], ROOT,
              CUDA_VISIBLE_DEVICES="")
@@ -141,7 +146,7 @@ def test_chip_smoke_fails_without_the_repo(tmp_path):
     assert '"ok": true' not in r.stdout
 
 
-def test_entry_points_default_to_cuda_and_do_not_fall_back():
+def test_entry_points_default_to_cuda_and_do_not_fall_back(tmp_path):
     assert not torch.cuda.is_available()
     _, tc = configs()
     _, noisy = configs(latent_num=2)
@@ -164,9 +169,13 @@ def test_entry_points_default_to_cuda_and_do_not_fall_back():
                       (1.0, 1.0, 0.0), 1.0, 1), 1e-3, adversarial=True),
                   lambda: SupervisedTrainer(tc, EteTrainSeLoss(
                       (1.0, 1.0, 0.0)), 1e-3),
-                  lambda: corpus_mean_std([])):
+                  lambda: corpus_mean_std([]),
+                  lambda: ComputeScore(*default_model_paths()),
+                  lambda: InferenceSession(default_model_paths()[1]),
+                  lambda: e2e_train.main(["--root", str(tmp_path / "e2e")])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
+    assert os.listdir(tmp_path) == []
 
 
 def _assert_tree_equal(got, want, path=""):

@@ -54,13 +54,20 @@ FIELDS = ("mu_r", "mu_i", "log_sigma", "delta_r", "delta_i")
 # ---------------------------------------------------------- discriminator
 
 
+@pytest.fixture(scope="module")
+def jax_dis():
+    """(JAX config, port config, JAX Discriminator variables): one init
+    for the module's Discriminator tests."""
+    jc, tc = configs(stft=TINY_STFT)
+    return jc, tc, np_vars(JDis(jc).init(jax.random.PRNGKey(4)))
+
+
 @pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
-def test_discriminator_matches_jax(train):
+def test_discriminator_matches_jax(jax_dis, train):
     """The score and its gradient with respect to the waveform; in train
     mode also the new running statistics (dis mode copies each batch's
     in) and the step counters."""
-    jc, tc = configs(stft=TINY_STFT)
-    variables = np_vars(JDis(jc).init(jax.random.PRNGKey(4)))
+    jc, tc, variables = jax_dis
     dis = load_jax_variables(Discriminator(tc, device="cpu"), variables)
     dis.train(train)
     wav = phase2_wav(1)

@@ -13,36 +13,23 @@ import os
 
 import jax
 import numpy as np
-import optax
 import pytest
 import torch
 
 from idccrn_vae_tpu.data import stats as jstats
 from idccrn_vae_tpu.data.audio_io import write_wav
-from idccrn_vae_tpu.losses.phase2 import EteTrainSeLoss as JLoss
-from idccrn_vae_tpu.train.supervised import SupervisedTrainer as JTrainer
 from idccrn_vae_torch.data import stats as tstats
-from idccrn_vae_torch.losses.phase2 import EteTrainSeLoss
 from idccrn_vae_torch.models.from_jax import load_jax_variables
 from idccrn_vae_torch.models.modules import bn_counts
-from idccrn_vae_torch.train.supervised import SupervisedTrainer
 from torch_port_util import (
-    TINY_STFT,
     check_metrics,
     check_models,
-    configs,
-    datanorm_stats,
     np_vars,
+    supervised_pair,
+    train_wav,
 )
 
-LR = 1e-2
-B, L = 3, 800
 STATS_REL = 1e-6
-
-
-def _wav(seed):
-    return (0.3 * np.random.default_rng(seed).standard_normal((B, L))
-            ).astype(np.float32)
 
 
 @pytest.mark.parametrize("datanorm", [False, True],
@@ -53,19 +40,9 @@ def test_supervised_sgd_step_matches_jax(datanorm):
     spectrogram (with datanorm, the de-normalised prediction), every
     parameter's delta, the BN statistics and counters, then the
     validation metrics of the stepped model."""
-    jc, tc = configs(stft=TINY_STFT, causal=True, recon_type="mask",
-                     skip_mode="real", lstm_hidden=8)
-    dn = datanorm_stats(3, TINY_STFT["n_fft"] // 2 + 1) if datanorm else None
-    weights = (1.0, 1.0, 0.5)
-    jtr = JTrainer(jc, JLoss(weights), LR, datanorm=dn)
-    jtr.tx = optax.sgd(LR)
-    state = jtr.init_state()
-    ttr = SupervisedTrainer(tc, EteTrainSeLoss(weights), LR, datanorm=dn,
-                            device="cpu")
-    load_jax_variables(ttr.model, np_vars(state["model"]))
-    ttr.opt = torch.optim.SGD(ttr.model.parameters(), lr=LR)
+    jtr, state, ttr = supervised_pair(datanorm)
     before = {k: v.clone() for k, v in ttr.model.state_dict().items()}
-    batch = (_wav(1), _wav(2))
+    batch = (train_wav(1), train_wav(2))
     s1, want = jtr.train_step(state, batch, jax.random.PRNGKey(0), 0)
     got = ttr.train_step(batch, None, 0)
     check_metrics(got, want)

@@ -32,15 +32,10 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
-from idccrn_vae_tpu.losses.nsvae_loss import NsvaeTrueKlLoss as JNsvaeLoss
-from idccrn_vae_tpu.losses.vae_loss import PretrainVaeLoss as JVaeLoss
 from idccrn_vae_tpu.train import optim as joptim
-from idccrn_vae_tpu.train.nsvae import NsvaeTrainer as JNsvaeTrainer
-from idccrn_vae_tpu.train.pretrain import PretrainTrainer as JPretrainTrainer
 from idccrn_vae_torch.losses.nsvae_loss import NsvaeTrueKlLoss
 from idccrn_vae_torch.losses.vae_loss import PretrainVaeLoss
 from idccrn_vae_torch.models.from_jax import load_jax_variables
@@ -51,59 +46,22 @@ from idccrn_vae_torch.train.nsvae import NsvaeTrainer
 from idccrn_vae_torch.train.pretrain import PretrainTrainer
 from torch_port_util import (
     F32_TOL,
-    TINY_STFT,
+    TRAIN_LR,
     NoiseStream,
     check_metrics as _check_metrics,
     check_models as _check_models,
     configs,
-    datanorm_stats,
     np_vars,
+    nsvae_pair as _nsvae_pair,
     patch_jax_noise,
     patch_port_noise,
+    pretrain_pair as _pretrain_pair,
     state_dict_of as _sd,
+    train_wav as _wav,
 )
 
-LR = 1e-2
+LR = TRAIN_LR
 FIT_REL = 1e-3
-B, L = 3, 800
-
-
-def _wav(seed, n=B):
-    return (0.3 * np.random.default_rng(seed).standard_normal((n, L))
-            ).astype(np.float32)
-
-
-# --------------------------------------------------------------- pretrain
-
-
-def _pretrain_pair(monkeypatch, sgd=True, warm=False, datanorm=False,
-                   **cfg_kw):
-    """(JAX trainer, JAX state, port trainer) from the same weights;
-    `datanorm` gives both a per-bin (mean, std)."""
-    jc, tc = configs(stft=TINY_STFT, num_samples=2, **cfg_kw)
-    kw = dict(kl_weight=0.05, mi_weight=0.2, num_samples=2,
-              recon_loss_weight=(1.0, 0.5, 0.1))
-    warm_w = np.asarray([0.1, 0.5], np.float32)
-    dn = datanorm_stats(8, TINY_STFT["n_fft"] // 2 + 1) if datanorm else None
-    jtr = JPretrainTrainer(jc, JVaeLoss(warm_w, **kw), LR, datanorm=dn)
-    if sgd:
-        jtr.tx_en = jtr.tx_de = optax.sgd(LR)
-    state = jtr.init_state()
-    if warm:  # a JAX step first: the BN counters are 1 when the port loads
-        patch_jax_noise(monkeypatch, NoiseStream(9),
-                        module="idccrn_vae_tpu.models.vae")
-        state, _ = jtr.train_step(state, _wav(50, 5), jax.random.PRNGKey(5), 0)
-        # ... with fresh optimizer states on both sides
-        state["opt_en"] = jtr.tx_en.init(state["enc"]["params"])
-        state["opt_de"] = jtr.tx_de.init(state["dec"]["params"])
-    ttr = PretrainTrainer(tc, PretrainVaeLoss(warm_w, **kw), LR,
-                          datanorm=dn, device="cpu")
-    load_jax_variables(ttr.encoder, np_vars(state["enc"]))
-    load_jax_variables(ttr.decoder, np_vars(state["dec"]))
-    if sgd:
-        ttr.opt_en = torch.optim.SGD(ttr.encoder.parameters(), lr=LR)
-        ttr.opt_de = torch.optim.SGD(ttr.decoder.parameters(), lr=LR)
-    return jtr, state, ttr
 
 
 @pytest.mark.parametrize("case", [
@@ -201,29 +159,6 @@ def test_pretrain_adam_steps_match_jax(monkeypatch):
 
 
 # ------------------------------------------------------------------ nsvae
-
-
-def _nsvae_pair(trainable=None, sgd=True):
-    """(JAX trainer, JAX state, port trainer): latent_num 2, original
-    channels, matching 'both', from the same weights."""
-    jpre, tpre = configs(stft=TINY_STFT)
-    jnoisy, tnoisy = configs(stft=TINY_STFT, latent_num=2)
-    kw = dict(alpha=0.8, w_resi=0.3, w_kl=1.0, w_dismiu=0.5,
-              matching="both")
-    jtr = JNsvaeTrainer(jpre, jnoisy, JNsvaeLoss(cfg=jnoisy, **kw), LR,
-                        trainable=trainable)
-    if sgd:
-        jtr.tx = optax.sgd(LR)
-    state = jtr.init_state()
-    ttr = NsvaeTrainer(tpre, tnoisy, NsvaeTrueKlLoss(cfg=tnoisy, **kw), LR,
-                       trainable=trainable, device="cpu")
-    for name, m in ttr.models.items():
-        load_jax_variables(m, np_vars(state["models"][name]))
-    if sgd:
-        params = [p for m in ttr.models.values() for p in m.parameters()
-                  if p.requires_grad]
-        ttr.opt = torch.optim.SGD(params, lr=LR)
-    return jtr, state, ttr
 
 
 @pytest.mark.parametrize("unfreeze", [False, True],

@@ -254,6 +254,124 @@ def wav_batch(seed: int, b: int, n: int) -> np.ndarray:
     return (0.1 * rng.standard_normal((b, n))).astype(np.float32)
 
 
+# ------------------------------------------ pretrain, NSVAE, supervised
+
+TRAIN_LR = 1e-2
+TRAIN_B, TRAIN_L = 3, 800
+
+
+def train_wav(seed, n=TRAIN_B):
+    return (0.3 * np.random.default_rng(seed).standard_normal(
+        (n, TRAIN_L))).astype(np.float32)
+
+
+def pretrain_pair(monkeypatch, sgd=True, warm=False, datanorm=False,
+                  **cfg_kw):
+    """(JAX trainer, JAX state, port trainer) of CVAE pretraining from the
+    same weights, tiny geometry, num_samples 2; `datanorm` gives both a
+    per-bin (mean, std); `warm` takes one JAX step first (the BN
+    counters are 1 when the port loads) and starts fresh optimizers."""
+    import optax
+
+    from idccrn_vae_tpu.losses.vae_loss import PretrainVaeLoss as JVaeLoss
+    from idccrn_vae_tpu.train.pretrain import (
+        PretrainTrainer as JPretrainTrainer,
+    )
+    from idccrn_vae_torch.losses.vae_loss import PretrainVaeLoss
+    from idccrn_vae_torch.models.from_jax import load_jax_variables
+    from idccrn_vae_torch.train.pretrain import PretrainTrainer
+
+    lr = TRAIN_LR
+    jc, tc = configs(stft=TINY_STFT, num_samples=2, **cfg_kw)
+    kw = dict(kl_weight=0.05, mi_weight=0.2, num_samples=2,
+              recon_loss_weight=(1.0, 0.5, 0.1))
+    warm_w = np.asarray([0.1, 0.5], np.float32)
+    dn = datanorm_stats(8, TINY_STFT["n_fft"] // 2 + 1) if datanorm else None
+    jtr = JPretrainTrainer(jc, JVaeLoss(warm_w, **kw), lr, datanorm=dn)
+    if sgd:
+        jtr.tx_en = jtr.tx_de = optax.sgd(lr)
+    state = jtr.init_state()
+    if warm:
+        patch_jax_noise(monkeypatch, NoiseStream(9),
+                        module="idccrn_vae_tpu.models.vae")
+        state, _ = jtr.train_step(state, train_wav(50, 5),
+                                  jax.random.PRNGKey(5), 0)
+        state["opt_en"] = jtr.tx_en.init(state["enc"]["params"])
+        state["opt_de"] = jtr.tx_de.init(state["dec"]["params"])
+    ttr = PretrainTrainer(tc, PretrainVaeLoss(warm_w, **kw), lr,
+                          datanorm=dn, device="cpu")
+    load_jax_variables(ttr.encoder, np_vars(state["enc"]))
+    load_jax_variables(ttr.decoder, np_vars(state["dec"]))
+    if sgd:
+        ttr.opt_en = torch.optim.SGD(ttr.encoder.parameters(), lr=lr)
+        ttr.opt_de = torch.optim.SGD(ttr.decoder.parameters(), lr=lr)
+    return jtr, state, ttr
+
+
+def nsvae_pair(trainable=None, sgd=True, **cfg_kw):
+    """(JAX trainer, JAX state, port trainer) of NSVAE posterior
+    matching: latent_num 2, original channels, matching 'both', from the
+    same weights."""
+    import optax
+
+    from idccrn_vae_tpu.losses.nsvae_loss import (
+        NsvaeTrueKlLoss as JNsvaeLoss,
+    )
+    from idccrn_vae_tpu.train.nsvae import NsvaeTrainer as JNsvaeTrainer
+    from idccrn_vae_torch.losses.nsvae_loss import NsvaeTrueKlLoss
+    from idccrn_vae_torch.models.from_jax import load_jax_variables
+    from idccrn_vae_torch.train.nsvae import NsvaeTrainer
+
+    lr = TRAIN_LR
+    jpre, tpre = configs(stft=TINY_STFT, **cfg_kw)
+    jnoisy, tnoisy = configs(stft=TINY_STFT, latent_num=2, **cfg_kw)
+    kw = dict(alpha=0.8, w_resi=0.3, w_kl=1.0, w_dismiu=0.5,
+              matching="both")
+    jtr = JNsvaeTrainer(jpre, jnoisy, JNsvaeLoss(cfg=jnoisy, **kw), lr,
+                        trainable=trainable)
+    if sgd:
+        jtr.tx = optax.sgd(lr)
+    state = jtr.init_state()
+    ttr = NsvaeTrainer(tpre, tnoisy, NsvaeTrueKlLoss(cfg=tnoisy, **kw), lr,
+                       trainable=trainable, device="cpu")
+    for name, m in ttr.models.items():
+        load_jax_variables(m, np_vars(state["models"][name]))
+    if sgd:
+        params = [p for m in ttr.models.values() for p in m.parameters()
+                  if p.requires_grad]
+        ttr.opt = torch.optim.SGD(params, lr=lr)
+    return jtr, state, ttr
+
+
+def supervised_pair(datanorm, **cfg_kw):
+    """(JAX trainer, JAX state, port trainer) of the supervised DCCRN with
+    SGD, from the same weights: the supervised_dccrn.ini usage line
+    (causal, mask, real skips) at tiny geometry."""
+    import optax
+
+    from idccrn_vae_tpu.losses.phase2 import EteTrainSeLoss as JLoss
+    from idccrn_vae_tpu.train.supervised import (
+        SupervisedTrainer as JTrainer,
+    )
+    from idccrn_vae_torch.losses.phase2 import EteTrainSeLoss
+    from idccrn_vae_torch.models.from_jax import load_jax_variables
+    from idccrn_vae_torch.train.supervised import SupervisedTrainer
+
+    lr = TRAIN_LR
+    jc, tc = configs(stft=TINY_STFT, causal=True, recon_type="mask",
+                     skip_mode="real", lstm_hidden=8, **cfg_kw)
+    dn = datanorm_stats(3, TINY_STFT["n_fft"] // 2 + 1) if datanorm else None
+    weights = (1.0, 1.0, 0.5)
+    jtr = JTrainer(jc, JLoss(weights), lr, datanorm=dn)
+    jtr.tx = optax.sgd(lr)
+    state = jtr.init_state()
+    ttr = SupervisedTrainer(tc, EteTrainSeLoss(weights), lr, datanorm=dn,
+                            device="cpu")
+    load_jax_variables(ttr.model, np_vars(state["model"]))
+    ttr.opt = torch.optim.SGD(ttr.model.parameters(), lr=lr)
+    return jtr, state, ttr
+
+
 # ------------------------------------------------------- phase-2 trainers
 
 PHASE2_LR = 1e-2
@@ -311,10 +429,9 @@ def phase2_pair(monkeypatch, sgd=True, adversarial=False, d_step=1,
         if sgd:
             jtr.tx = optax.sgd(lr)
             jtr.tx_dis = optax.sgd(2 * lr) if adversarial else None
-        _PHASE2_JAX[key] = jtr
-    jtr = _PHASE2_JAX[key]
+        _PHASE2_JAX[key] = (jtr, jtr.init_state())
+    jtr, state = _PHASE2_JAX[key]
     jtr.d_step, jtr._batch_counter = d_step, 0
-    state = jtr.init_state()
     ttr = Phase2Trainer(tenc, tdec, tloss.TwoPhaseLoss(**kw), lr,
                         device="cpu", **trainer_kw)
     assert sorted(ttr.models) == sorted(state["models"])
