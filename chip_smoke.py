@@ -46,6 +46,19 @@ one summary line each:
                    the error with TF32 on; every node output on the
                    card; score_array's raw scores against the pinned
                    goldens; warm ms per 9.01 s window
+  int8             compute='int8' at quant_scope 'enc' and 'all': each
+                   quantized conv's int8 operands and int32 accumulator
+                   on the card against the CPU from the same input, bit
+                   for bit; the output against f32 on the card; RTFx at
+                   B=32 and 128 beside bf16's (int8_throughput); each
+                   quantized conv at B=32, quantize + im2col + _int_mm +
+                   dequantize against the bf16 cuDNN conv (int8_stage)
+  export           torch.export of clean_direct (bf16, 3 s) on the card,
+                   timed; the artifact against the eager program with the
+                   same latent draws at B=1 and 32; RTFx of both in
+                   turns; an f32 export (0.25 s) against eager, TF32 off;
+                   the streaming artifact against StreamingEnhancer over
+                   144 chunks (export_stream)
 
 The evaluation entry points, on a corpus of 24 utterances of 1.5-6 s from
 `data/synth.make_corpus` (four SNR buckets), with the weights above
@@ -68,6 +81,12 @@ each CLI runs on its default device, the card:
   stream_cli       cli.stream_enhance over 4 files: each wav equal to
                    StreamingEnhancer.stream to one PCM16 step; the CLI's
                    report
+  export_cli       cli.export_model (one 0.5 s bucket) then
+                   cli.run_artifact over the corpus: each wav equal, to
+                   one PCM16 step, to the same windowing of the eager
+                   Enhancer with the same latent draws
+  eval_cli_int8    cli.test_enhance --compute int8: finite scores, the
+                   CLI's RTFx
 
 The scores come from random weights and say nothing of enhancement
 quality.
@@ -112,8 +131,9 @@ Training, at the configs' inis (3 s segments of 481 frames):
 serving along: the CLIs read its weights).
 
 The port has no hand-written kernel yet: every op of these paths is a
-PyTorch op (cuDNN convolution, cuBLAS matmul, cuFFT, elementwise, and
-autograd's backward of each), so the kernel table it prints is empty.
+PyTorch op (cuDNN convolution, cuBLAS matmul and the int8 product
+`torch._int_mm`, cuFFT, elementwise, and autograd's backward of each),
+so the kernel table it prints is empty.
 
 It exits non-zero, and prints no result, when any phase fails or no
 CUDA device is visible. The last line of its output is one JSON object
@@ -333,7 +353,8 @@ def phase_throughput(enh, device: str, smi: str, iters: int = 20,
         dt = time.perf_counter() - t0
         _check(bool(torch.isfinite(out).all()), "throughput output")
         peak = torch.cuda.max_memory_allocated(device)
-        _line(phase, **fields, batch=b, compute="bf16", num_samples=1,
+        _line(phase, **fields, batch=b, compute=enh.enc_cfg.compute,
+              num_samples=1,
               clip_s=CLIP_S, iters=iters,
               rtfx=f"{iters * b * CLIP_S / dt:.1f}",
               ms_per_batch=f"{1e3 * dt / iters:.2f}",
@@ -888,6 +909,253 @@ def phase_dnsmos(device: str, smi: str, iters: int = 20) -> None:
 
 # -------------------------------------------------------- evaluation CLIs
 
+# --------------------------------------------------------- int8 and export
+
+# int8 against f32 on the card, relative L2 of the clean_direct output.
+# Each quantized conv rounds its input to 8 bits with one step per sample
+# (abs-max / 127): on post-BN/PReLU maps whose abs-max is 4-8 times their
+# RMS that is ~1-2% RMS noise per conv; the scope 'all' program has 15
+# quantized convs, whose noise adds up as independent errors
+# (sqrt(15) * 2% = 7.7%), on top of bf16's 0.84% (PERF.md).
+INT8_REL_L2 = 0.1
+INT8_SCOPES = ("enc", "all")
+INT8_ITERS = 10
+STAGE_ITERS = 20
+# an exported program runs the eager program's aten ops: f32 against
+# eager to 1e-5 of max |out| (TF32 off), bf16 to one bf16 rounding
+EXPORT_F32_REL = 1e-5
+EXPORT_BF16_REL = 2.0 ** -8
+EXPORT_F32_S = 0.25  # the f32 export's length: tracing time grows with it
+STREAM_EXPORT_CHUNKS = 144
+EXPORT_CLI_S = 0.5  # export_cli's bucket, windowed over the eval corpus
+
+
+def _int8_enhancer(scope: str, weights, device: str):
+    import dataclasses
+
+    from idccrn_vae_torch.eval.enhance import Enhancer
+
+    cfg = dataclasses.replace(_config("int8"), quant_scope=scope)
+    return Enhancer(cfg, cfg, *weights, num_samples=1, device=device)
+
+
+def _int8_stages(enh, wav, noise):
+    """(output, the arguments of each quantized conv) of one int8
+    forward: `ops/conv._quantized`'s (x, wr, wi, br, bi, stride,
+    padding, causal, transposed)."""
+    from idccrn_vae_torch.ops import conv
+
+    calls, orig = [], conv._quantized
+
+    def record(*args):
+        calls.append(args)
+        return orig(*args)
+
+    conv._quantized = record
+    try:
+        out = enh.forward(wav, noise=noise)
+    finally:
+        conv._quantized = orig
+    return out, calls
+
+
+def _int8_acc(args, device: str):
+    """The int8 operands and int32 accumulator of one quantized conv, on
+    `device`, for the first sample of its batch (the CPU's im2col is the
+    slow side)."""
+    from idccrn_vae_torch.ops import conv
+
+    x, wr, wi, _, _, stride, padding, causal, transposed = args
+    move = lambda t: t.to(device)
+    kernel, st, pad, dil = conv.int8_conv_geometry(
+        move(wr), move(wi), stride, padding, causal, transposed)
+    xq, _ = conv.quantize_input(move(x[:1]))
+    kq, _ = conv.quantize_kernel(kernel)
+    return xq, kq, conv.int8_conv_acc(xq, kq, st, pad, dil)
+
+
+def _ms(fn, iters: int) -> float:
+    """Wall ms per call of fn over `iters` warm calls, closed by a
+    synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def phase_int8(weights, device: str, smi: str, wav, noise, ref) -> None:
+    """compute='int8' at both quant scopes: each quantized stage's int32
+    accumulator on the card against the CPU from the same input, the
+    output against f32 on the card, RTFx beside bf16's, and each
+    quantized stage's int8 path against its bf16 cuDNN conv."""
+    from idccrn_vae_torch.ops import conv
+
+    for scope in INT8_SCOPES:
+        enh = _int8_enhancer(scope, weights, device)
+        out, calls = _int8_stages(enh, wav.to(device), noise)
+        _check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+               f"int8 {scope} output shape/finite")
+        for i, args in enumerate(calls):
+            with torch.inference_mode():
+                card = _int8_acc(args, device)
+                cpu = _int8_acc(args, "cpu")
+            for name, got, want in zip(("xq", "kq", "acc"), card, cpu):
+                diff = (got.cpu().long() - want.long()).abs()
+                _check(not bool(diff.any()),
+                       f"int8 {scope} stage {i} {name}: card and CPU differ "
+                       f"at {int((diff > 0).sum())} of {diff.numel()}, "
+                       f"by at most {int(diff.max())}")
+        rel = _rel_l2(out, ref)
+        _line("int8", scope=scope, quantized_convs=len(calls),
+              acc_card_vs_cpu="bit-equal (sample 0)", batch=wav.shape[0],
+              rel_l2_vs_f32=f"{rel:.3e}", bound=INT8_REL_L2)
+        _check(rel <= INT8_REL_L2, f"int8 {scope} rel L2 {rel}")
+    # RTFx: bf16, then each scope, in turns in this call
+    phase_throughput(_enhancer("bf16", weights, device), device, smi,
+                     iters=INT8_ITERS, phase="int8_throughput")
+    for scope in INT8_SCOPES:
+        phase_throughput(_int8_enhancer(scope, weights, device), device,
+                         smi, iters=INT8_ITERS, phase="int8_throughput",
+                         scope=scope)
+    # per quantized stage at B=32: quantize + im2col + _int_mm +
+    # dequantize against the bf16 cuDNN conv of the same shapes
+    b = THROUGHPUT_BATCHES[0]
+    gen = torch.Generator().manual_seed(SEED + 40)
+    cfg = _config("int8")
+    frames = CLIP_S * FS // cfg.stft.hop + 1
+    eps = tuple(torch.randn(b, 1, frames, cfg.zdim, generator=gen)
+                for _ in range(2))
+    x32 = 0.1 * torch.randn(b, CLIP_S * FS, generator=gen)
+    _, calls = _int8_stages(_int8_enhancer("all", weights, device),
+                            x32.to(device), eps)
+    tot8 = tot16 = 0.0
+    with torch.inference_mode():  # the recorded maps are inference tensors
+        for i, args in enumerate(calls):
+            x, wr, wi, br, bi, stride, padding, causal, transposed = args
+            fn16 = (conv.complex_conv_transpose2d if transposed
+                    else conv.complex_conv2d)
+            ms8 = _ms(lambda: conv._quantized(*args), STAGE_ITERS)
+            ms16 = _ms(lambda: fn16(x, wr, wi, br, bi, stride, padding,
+                                    causal=causal,
+                                    compute_dtype=torch.bfloat16),
+                       STAGE_ITERS)
+            tot8, tot16 = tot8 + ms8, tot16 + ms16
+            _line("int8_stage", index=i,
+                  kind="tconv" if transposed else "conv",
+                  input="x".join(map(str, x.shape)),
+                  weight="x".join(map(str, wr.shape)), int8_ms=f"{ms8:.3f}",
+                  bf16_ms=f"{ms16:.3f}", int8_over_bf16=f"{ms8 / ms16:.2f}")
+    _line("int8_stage", stages=len(calls), batch=b, int8_ms=f"{tot8:.3f}",
+          bf16_ms=f"{tot16:.3f}", card=json.dumps(smi))
+
+
+def _artifact_check(phase: str, got, want, rel: float, **fields) -> None:
+    err, scale = _max_rel(got, want)
+    _line(phase, **fields, bit_equal=bool(torch.equal(got, want)),
+          max_abs_err=f"{err:.3e}", max_abs_out=f"{scale:.3e}", tol=rel)
+    _check(tuple(got.shape) == tuple(want.shape), f"{phase} shape")
+    _check(err <= rel * scale, f"{phase} rel err {err / scale}")
+
+
+def _chained_rtfx(fn, b: int, device: str, iters: int) -> float:
+    n = CLIP_S * FS
+    gen = torch.Generator().manual_seed(SEED + 61)
+    wav = (0.1 * torch.randn(b, n, generator=gen)).to(device)
+    out = fn(wav)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn(wav + 1e-6 * out)
+    torch.cuda.synchronize()
+    return iters * b * CLIP_S / (time.perf_counter() - t0)
+
+
+def phase_export(weights, device: str, smi: str) -> None:
+    """torch.export of clean_direct at 3 s (bf16) on the card, timed; the
+    artifact against the eager program with the same draws at B=1 and
+    32; RTFx of both; an f32 export against eager with TF32 off; the
+    streaming artifact against StreamingEnhancer over 144 chunks."""
+    from idccrn_vae_torch.eval import export
+
+    n = CLIP_S * FS
+    enh = _enhancer("bf16", weights, device)
+    serving = export.serving_fn_nsvae(enh)
+    t0 = time.perf_counter()
+    prog = export.export_serving(serving, n, device)
+    export_s = time.perf_counter() - t0
+    module = prog.module()
+    _line("export", program="clean_direct", compute="bf16", clip_s=CLIP_S,
+          export_s=f"{export_s:.1f}", graph_nodes=len(prog.graph.nodes))
+    gen = torch.Generator().manual_seed(SEED + 60)
+    for b in (1, THROUGHPUT_BATCHES[0]):
+        wav = (0.1 * torch.randn(b, n, generator=gen)).to(device)
+        eps = serving.draw_eps(b, n, gen, device)
+        with torch.no_grad():
+            got = module(wav, *eps)
+        want = enh.forward(wav, noise=(eps[0], eps[1]))
+        _artifact_check("export", got, want, EXPORT_BF16_REL, batch=b,
+                        vs="eager bf16, same eps")
+    b = THROUGHPUT_BATCHES[0]
+
+    def artifact(w):
+        with torch.no_grad():
+            return module(w, *serving.draw_eps(b, n, gen, device))
+
+    def eager(w):
+        return enh.forward(w, noise=tuple(serving.draw_eps(b, n, gen,
+                                                            device)[:2]))
+
+    rtfx = [(name, _chained_rtfx(fn, b, device, INT8_ITERS))
+            for name, fn in (("eager", eager), ("artifact", artifact),
+                             ("artifact", artifact), ("eager", eager))]
+    _line("export", batch=b, clip_s=CLIP_S, iters=INT8_ITERS,
+          rtfx=",".join(f"{k}:{v:.1f}" for k, v in rtfx),
+          order="eager,artifact,artifact,eager", card=json.dumps(smi))
+
+    m = int(EXPORT_F32_S * FS)
+    enh32 = _enhancer("f32", weights, device)
+    s32 = export.serving_fn_nsvae(enh32)
+    with _NoTf32():
+        t0 = time.perf_counter()
+        prog32 = export.export_serving(s32, m, device)
+        f32_s = time.perf_counter() - t0
+        wav = (0.1 * torch.randn(2, m, generator=gen)).to(device)
+        eps = s32.draw_eps(2, m, gen, device)
+        with torch.no_grad():
+            got = prog32.module()(wav, *eps)
+        want = enh32.forward(wav, noise=(eps[0], eps[1]))
+    _artifact_check("export", got, want, EXPORT_F32_REL, batch=2,
+                    compute="f32", clip_s=EXPORT_F32_S,
+                    export_s=f"{f32_s:.1f}", tf32="off")
+
+    cfg = _config("f32")
+    streamer = _streamer(cfg, cfg, *weights, device)
+    t0 = time.perf_counter()
+    sprog, spec = export.export_streaming(streamer, batch=1)
+    stream_s = time.perf_counter() - t0
+    step = sprog.module()
+    mchunk = streamer.chunk_samples
+    wav = 0.1 * torch.randn(1, STREAM_EXPORT_CHUNKS * mchunk, generator=gen)
+    state = [torch.zeros(shape, device=device) for shape, _ in spec]
+    ref_state = streamer.init_state(1)
+    outs, refs = [], []
+    with _NoTf32(), torch.no_grad():
+        for k in range(STREAM_EXPORT_CHUNKS):
+            chunk = wav[:, k * mchunk:(k + 1) * mchunk].to(device)
+            out, state = step(state, chunk)
+            ref, ref_state = streamer.process_chunk(ref_state, chunk)
+            outs.append(out)
+            refs.append(ref)
+    _artifact_check("export_stream", torch.cat(outs, 1), torch.cat(refs, 1),
+                    EXPORT_F32_REL, batch=1, chunks=STREAM_EXPORT_CHUNKS,
+                    chunk_frames=STREAM_CHUNK_FRAMES,
+                    export_s=f"{stream_s:.1f}", state_tensors=len(spec),
+                    tf32="off")
+
+
 EVAL_UTTS = 24
 EVAL_MAX_S = 6.0
 EVAL_MIN_S = 1.5
@@ -1288,6 +1556,82 @@ def phase_stream_cli(dirs: dict, corpus, out_root: str, smi: str,
           wav_max_diff_pcm16=f"{lsb:g}", warm="reference stream first",
           card=json.dumps(smi))
     _line("stream_cli", report=json.dumps(report, separators=(",", ":")))
+
+
+def phase_export_cli(dirs: dict, corpus, out_root: str, smi: str,
+                     device=None) -> None:
+    """cli/export_model (phase-1 NSVAE, clean_direct, one 1 s bucket)
+    then cli/run_artifact over the corpus; each wav against the same
+    windowing (`run_artifact.windowed_enhance`) of the eager Enhancer
+    with the same draws (a generator seeded 0, as the CLI's --seed 0)."""
+    import contextlib
+    import io
+
+    from idccrn_vae_torch.cli import export_model, run_artifact
+    from idccrn_vae_torch.cli.common import load_enhancement_checkpoints
+    from idccrn_vae_torch.device import resolve_device
+    from idccrn_vae_torch.eval import export, runners
+    from idccrn_vae_torch.eval.enhance import Enhancer
+
+    noisy_dir, _, _, paths = corpus
+    art = os.path.join(out_root, "artifact")
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        export_model.main(["--nsvae_dir", dirs["nsvae"], "--decoder_dir",
+                           dirs["cvae"], "--out_dir", art, "--seconds",
+                           str(EXPORT_CLI_S), *_device_args(device)])
+    export_s = time.perf_counter() - t0
+    meta = json.loads(printed.getvalue())
+    out = os.path.join(out_root, "artifact_out")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        report = run_artifact.main([
+            "--artifact_dir", art, "--in_dir", noisy_dir, "--out_dir", out,
+            "--batch_size", "32", "--seed", "0", *_device_args(device)])
+    run_s = time.perf_counter() - t0
+    enc_cfg, dec_cfg, enc, dec, _, pad_mode = load_enhancement_checkpoints(
+        dirs["nsvae"], dirs["cvae"])
+    live = Enhancer(enc_cfg, dec_cfg, enc, dec, num_samples=1,
+                    pad_mode=pad_mode, device=device)
+    serving = export.serving_fn_nsvae(live)
+    eager = export.bucketed_call([(meta["length"], serving.call)], serving,
+                                 resolve_device(device))
+    gen = torch.Generator().manual_seed(0)
+    want, windows = run_artifact.windowed_enhance(
+        lambda b: eager(b, generator=gen).cpu().numpy(),
+        runners.load_testset(paths), meta["length"], meta["n_fft"], 32)
+    _check(windows == report["windows"], "export_cli window count")
+    lsb = _check_wavs("export_cli", out, [os.path.basename(p) for p in paths],
+                      want)
+    _line("export_cli", files=report["files"], windows=windows,
+          bucket_s=EXPORT_CLI_S, export_model_s=f"{export_s:.1f}",
+          run_artifact_s=f"{run_s:.1f}",
+          artifact_rtfx=report["rtf_x"], wav_max_diff_pcm16=f"{lsb:g}",
+          vs="eager, same windows and draws", card=json.dumps(smi))
+
+
+def phase_eval_cli_int8(dirs: dict, corpus, out_root: str, smi: str,
+                        device=None) -> None:
+    """cli/test_enhance --compute int8 (phase 1, the CLI's defaults:
+    num_samples 10, batch 8, quant_scope 'enc'): finite scores, CLI RTFx."""
+    from idccrn_vae_torch.cli import test_enhance
+
+    noisy_dir, clean_dir, meta_path, paths = corpus
+    t0 = time.perf_counter()
+    res = test_enhance.main([
+        "--nsvae_dir", dirs["nsvae"], "--decoder_dir", dirs["cvae"],
+        "--noisy_dir", noisy_dir, "--clean_dir", clean_dir,
+        "--out_dir", os.path.join(out_root, "eval_cli_int8"),
+        "--compute", "int8", "--corpus_meta", meta_path,
+        *_device_args(device)])
+    cli_s = time.perf_counter() - t0
+    _finite_scores("eval_cli_int8", res, len(paths))
+    audio_s = _audio_seconds(noisy_dir)
+    _line("eval_cli_int8", utterances=len(paths), compute="int8",
+          num_samples=10, batch=8, cli_s=f"{cli_s:.3f}",
+          cli_rtfx=f"{audio_s / cli_s:.1f}", enhanced_means=_means(res),
+          card=json.dumps(smi))
 
 
 # --------------------------------------------------------------- training
@@ -1895,8 +2239,8 @@ def main(argv=None) -> int:
     weights = _weights(_config("f32"))
     if "serving" in groups:
         t_phase = time.perf_counter()
-        wav, noise, ref = phase_f32(weights, device)
-        phase_bf16(weights, device, wav, noise, ref)
+        wav_f32, noise_f32, ref_f32 = phase_f32(weights, device)
+        phase_bf16(weights, device, wav_f32, noise_f32, ref_f32)
         enh = _enhancer("bf16", weights, device)
         phase_serving(enh)
         phase_throughput(enh, device, smi)
@@ -1915,6 +2259,8 @@ def main(argv=None) -> int:
         supervised = phase_supervised(device, smi)
         vae = phase_vae_recon(device)
         phase_dnsmos(device, smi)
+        phase_int8(weights, device, smi, wav_f32, noise_f32, ref_f32)
+        phase_export(weights, device, smi)
         _line("serving_phases",
               seconds=f"{time.perf_counter() - t_phase:.1f}")
 
@@ -1931,8 +2277,10 @@ def main(argv=None) -> int:
             phase_prevae_cli(dirs, corpus, root, smi)
             phase_supervised_cli(dirs, corpus, root, smi)
             phase_stream_cli(dirs, corpus, root, smi)
+            phase_export_cli(dirs, corpus, root, smi)
+            phase_eval_cli_int8(dirs, corpus, root, smi)
         _line("eval_phases", seconds=f"{time.perf_counter() - t_eval:.1f}",
-              what="corpus, checkpoints and the four CLI phases")
+              what="corpus, checkpoints and the CLI phases")
 
     if "train" in groups:
         t_train = time.perf_counter()

@@ -5,8 +5,9 @@
 
 The port of `idccrn_vae_tpu.cli.test_enhance`, with the same flags plus
 --device (default: the CUDA card). It reads the port's checkpoint dirs
-(meta.json + best.pt). Not ported yet: --compute int8 and data-parallel
---n_devices above 1, which exit with an error.
+(meta.json + best.pt). --compute int8 serves with int8 convolutions
+(`ops/conv.quantized_conv`). Not ported yet: data-parallel --n_devices
+above 1, which exits with an error.
 """
 
 from __future__ import annotations
@@ -57,7 +58,10 @@ def build_parser():
     p.add_argument("--compute", type=str, default="bf16",
                    choices=["f32", "bf16", "int8"],
                    help="operand dtype of the convs, LSTM and dense "
-                        "layers; int8 is not ported yet")
+                        "layers; int8 = serving-only quantized convs "
+                        "(per-sample activation and per-output-channel "
+                        "weight scales, int32 accumulation), bf16 "
+                        "elsewhere")
     p.add_argument("--sample_chunks", type=int, default=1,
                    help="decode num_samples in this many sequential "
                         "chunks — same outputs, peak decoder memory "
@@ -70,9 +74,6 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    if args.compute == "int8":
-        raise SystemExit("--compute int8 is not ported to idccrn_vae_torch "
-                         "yet (ROADMAP item 19); use bf16 or f32")
     if args.n_devices is not None and args.n_devices > 1:
         raise SystemExit("data-parallel evaluation (--n_devices > 1) is not "
                          "ported to idccrn_vae_torch yet (ROADMAP item 17)")

@@ -162,6 +162,13 @@ class Enhancer:
         noise latent's draws, each (B, num_samples, T, zdim); a latent
         without one draws from `generator`.
         """
+        return self.program(wav, generator, noise, noise_n)
+
+    def program(self, wav: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                noise: Eps = None, noise_n: Eps = None) -> torch.Tensor:
+        """`forward` outside inference mode: the body `eval/export.py`
+        traces, so the live and exported programs share one body."""
         s = self.enc_cfg.stft
         ns, chunks = self.num_samples, self.sample_chunks
         out = self.encoder(wav, num_samples=ns, generator=generator,

@@ -52,7 +52,7 @@ from idccrn_vae_torch.models.vae import (
     parse_sliced_head,
 )
 from idccrn_vae_torch.ops.conv import complex_conv2d, complex_conv_transpose2d
-from idccrn_vae_torch.ops.stft import _ola_envelope, _overlap_add, _padded_hann
+from idccrn_vae_torch.ops.stft import _overlap_add, hann_window, ola_envelope
 
 MODELS = ("nsvae", "supervised")
 
@@ -126,7 +126,7 @@ class StreamingEnhancer:
         self.n = chunk_frames
         self.hop, self.n_fft, self.win_length = s.hop, s.n_fft, s.win_length
         self.chunk_samples = chunk_frames * s.hop
-        self.window = _padded_hann(s.win_length, s.n_fft, self.device,
+        self.window = hann_window(s.win_length, s.n_fft, self.device,
                                    torch.float32)
 
     # -- state -------------------------------------------------------------
@@ -227,7 +227,7 @@ class StreamingEnhancer:
         oframes = torch.fft.irfft(cplx, n=n_fft, dim=-1) * self.window
         num = _overlap_add(oframes, hop)  # (B, N*hop + tail)
         num[:, :tail] += state.ola_num
-        env = _ola_envelope(n, n_fft, hop, self.win_length, self.device,
+        env = ola_envelope(n, n_fft, hop, self.win_length, self.device,
                             torch.float32).clone()
         env[:tail] += state.ola_env
         m = n * hop

@@ -59,20 +59,39 @@ class DccrnConfig:
     resynthesis: bool = False
     # 'f32' | 'bf16' | 'int8': dtype of the conv/LSTM/dense operands.
     # Parameters, BN statistics, STFT/ISTFT and the latent head stay
-    # float32. 'int8' is not ported yet.
+    # float32. 'int8' is a serving-only mode (the trainers refuse it):
+    # the convs whose channel counts both reach quant_min_ch run on int8
+    # operands with int32 accumulation (`ops/conv.quantized_conv`), the
+    # encoder's always and the decoder's with quant_scope 'all';
+    # everything else runs as 'bf16'.
     compute: Literal["f32", "bf16", "int8"] = "f32"
+    # int8: narrower stages keep bf16 (the first encoder conv sees the
+    # raw spectrum, whose range one int8 scale per sample cannot cover)
     quant_min_ch: int = 16
     quant_scope: Literal["enc", "all"] = "enc"
     remat: bool = False
 
     @property
     def compute_dtype(self) -> torch.dtype:
-        """Operand dtype of the convs, the LSTM and the dense layer."""
+        """Operand dtype of the LSTM, the dense layer and the convs int8
+        mode leaves unquantized: int8 mode rides bf16, as in the JAX
+        package."""
+        return (torch.bfloat16 if self.compute in ("bf16", "int8")
+                else torch.float32)
+
+    @property
+    def conv_quant(self) -> bool:
+        return self.compute == "int8"
+
+    def reject_int8_training(self, who: str) -> None:
+        """Trainers call this: int8 is serving-only (the rounding has no
+        useful gradient, and a train-mode forward would run bf16 while
+        validation quantized). The JAX package's error and message."""
         if self.compute == "int8":
-            raise NotImplementedError(
-                "compute='int8' is not ported to idccrn_vae_torch yet "
-                "(ROADMAP queue 1 item 19); use 'bf16' or 'f32'")
-        return torch.bfloat16 if self.compute == "bf16" else torch.float32
+            raise ValueError(
+                f"{who}: compute='int8' is a serving-only mode — train "
+                "with 'bf16' (or 'f32') and pass --compute int8 at "
+                "evaluation/serving time instead.")
 
     @property
     def num_stages(self) -> int:

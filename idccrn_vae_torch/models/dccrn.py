@@ -74,7 +74,6 @@ class SupervisedDccrn(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
-        cfg.compute_dtype  # rejects compute modes the port lacks
         self.cfg = cfg
         self.add_module(self.prefix,
                         DccrnLayers(cfg, default_generator(generator)))

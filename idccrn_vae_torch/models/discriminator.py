@@ -40,7 +40,6 @@ class Discriminator(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
-        cfg.compute_dtype  # rejects compute modes the port lacks
         gen = default_generator(generator)
         self.cfg = cfg
         c, f = bottleneck_dims(cfg)

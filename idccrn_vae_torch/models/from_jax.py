@@ -111,6 +111,23 @@ def jax_to_state_dict(variables: dict,
             for k, v in out.items()}
 
 
+def jax_to_port_tensors(variables: dict,
+                        prefix: str = "") -> Dict[str, torch.Tensor]:
+    """`jax_to_state_dict` as CPU tensors in the port modules' shapes
+    (BN statistics (C,) -> (1, C, 1, 1), PReLU () -> (1,)): a state_dict
+    that loads without the module at hand (a checkpoint's best.pt)."""
+    stats = set(BN_STATS.values())
+    out = {}
+    for name, arr in jax_to_state_dict(variables, prefix).items():
+        t = torch.from_numpy(arr)
+        if name.rsplit(".", 1)[-1] in stats:
+            t = t.reshape(1, -1, 1, 1)
+        elif name.endswith(".prelu.weight"):
+            t = t.reshape(1)
+        out[name] = t
+    return out
+
+
 def jax_bn_counts(variables: dict, prefix: str = "") -> Dict[str, int]:
     """The BN step counters of a JAX variable tree, by the port module
     name of their ComplexBatchNorm (``encoders.{i}.bn`` ...)."""

@@ -274,7 +274,8 @@ def apply_encoder_stack(stages: Sequence[EncoderStage], x: torch.Tensor,
     """x: (B, F, T, 2*Cin) -> (bottleneck, skips list).
 
     BN runs in each stage's mode: batch statistics with a running update
-    in train mode, the running statistics in eval mode."""
+    in train mode, the running statistics in eval mode. int8 quantizes a
+    stage in eval mode only, as the JAX package's `not train`."""
     time_pad = 1 if cfg.causal else 0
     cdt = cfg.compute_dtype
     skips = []
@@ -283,7 +284,9 @@ def apply_encoder_stack(stages: Sequence[EncoderStage], x: torch.Tensor,
         x = complex_conv2d(x, c.conv_re.weight, c.conv_im.weight,
                            c.conv_re.bias, c.conv_im.bias, cfg.stride,
                            (cfg.freq_pad, time_pad), causal=cfg.causal,
-                           compute_dtype=cdt)
+                           compute_dtype=cdt,
+                           quant=cfg.conv_quant and not st.training,
+                           quant_min_ch=cfg.quant_min_ch)
         x = prelu(st.bn(x), st.prelu.weight)
         skips.append(x)
     return x, skips
@@ -334,11 +337,15 @@ def apply_decoder_stack(stages: Sequence[DecoderStage], x: torch.Tensor,
     """
     n = cfg.num_stages
     cdt = cfg.compute_dtype
+    quant = (cfg.conv_quant and cfg.quant_scope == "all"
+             and not any(st.training for st in stages))
 
     def tconv(inp, wr, wi, br=None, bi=None):
+        # each half of a skip stage gates and scales on its own weights
         return complex_conv_transpose2d(inp, wr, wi, br, bi, cfg.stride,
                                         (cfg.freq_pad, 0), causal=cfg.causal,
-                                        compute_dtype=cdt)
+                                        compute_dtype=cdt, quant=quant,
+                                        quant_min_ch=cfg.quant_min_ch)
 
     for i, st in enumerate(stages):
         t = st.transconv

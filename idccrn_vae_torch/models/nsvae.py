@@ -45,7 +45,6 @@ class NsvaeEncoder(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
-        cfg.compute_dtype  # rejects compute modes the port lacks
         gen = default_generator(generator)
         self.cfg = cfg
         self.guard = "clamp" if cfg.latent == "fc" else "eps"

@@ -104,7 +104,6 @@ class VaeEncoder(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
-        cfg.compute_dtype  # rejects compute modes the port lacks
         gen = default_generator(generator)
         self.cfg = cfg
         self.guard = "clamp" if cfg.latent == "fc" else "eps"
@@ -159,7 +158,6 @@ class VaeDecoder(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
-        cfg.compute_dtype  # rejects compute modes the port lacks
         gen = default_generator(generator)
         self.cfg = cfg
         c, f = bottleneck_dims(cfg)

@@ -22,6 +22,27 @@ import torch
 import torch.nn.functional as F
 
 
+def _traced() -> bool:
+    """Inside torch.export or torch.compile tracing: a tensor built there
+    is a constant of the traced graph (a fake tensor while tracing), so
+    it must not enter the eager caches below."""
+    return torch.compiler.is_exporting() or torch.compiler.is_compiling()
+
+
+def hann_window(win_length: int, n_fft: int, device: torch.device,
+                dtype: torch.dtype) -> torch.Tensor:
+    """`_padded_hann`, from its cache except while tracing."""
+    build = _padded_hann.__wrapped__ if _traced() else _padded_hann
+    return build(win_length, n_fft, device, dtype)
+
+
+def ola_envelope(frames: int, n_fft: int, hop: int, win_length: int,
+                 device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """`_ola_envelope`, from its cache except while tracing."""
+    build = _ola_envelope.__wrapped__ if _traced() else _ola_envelope
+    return build(frames, n_fft, hop, win_length, device, dtype)
+
+
 @functools.lru_cache(maxsize=16)
 def _padded_hann(win_length: int, n_fft: int, device: torch.device,
                  dtype: torch.dtype) -> torch.Tensor:
@@ -47,7 +68,7 @@ def _ola_envelope(frames: int, n_fft: int, hop: int, win_length: int,
                   device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """Overlap-added squared window over `frames` frames, (cover,), built
     outside inference mode like `_padded_hann`."""
-    window = _padded_hann(win_length, n_fft, device, dtype)
+    window = hann_window(win_length, n_fft, device, dtype)
     with torch.inference_mode(False), torch.no_grad():
         return _overlap_add((window * window).expand(1, frames, n_fft),
                             hop)[0]
@@ -71,7 +92,7 @@ def stft(signal: torch.Tensor, n_fft: int = 512, hop: int = 100,
     pad = n_fft // 2
     x = F.pad(signal[:, None], (pad, pad), mode="reflect")[:, 0]
     frames = x.unfold(-1, n_fft, hop)  # (B, T, n_fft), a view
-    window = _padded_hann(win_length, n_fft, signal.device, signal.dtype)
+    window = hann_window(win_length, n_fft, signal.device, signal.dtype)
     spec = torch.fft.rfft(frames * window, n=n_fft, dim=-1)  # (B, T, F)
     out = torch.view_as_real(spec).transpose(1, 2).contiguous()
     out = out.to(signal.dtype)
@@ -89,7 +110,7 @@ def istft(spec: torch.Tensor, n_fft: int = 512, hop: int = 100,
         spec = spec[None]
     dtype = spec.dtype
     b, _, t, _ = spec.shape
-    window = _padded_hann(win_length, n_fft, spec.device, dtype)
+    window = hann_window(win_length, n_fft, spec.device, dtype)
     cplx = torch.view_as_complex(spec.contiguous()).transpose(1, 2)
     frames = torch.fft.irfft(cplx, n=n_fft, dim=-1).to(dtype) * window
 
@@ -98,7 +119,7 @@ def istft(spec: torch.Tensor, n_fft: int = 512, hop: int = 100,
         length = (t - 1) * hop
     full = length + 2 * pad
     sig = _overlap_add(frames, hop)
-    env = _ola_envelope(t, n_fft, hop, win_length, spec.device, dtype)
+    env = ola_envelope(t, n_fft, hop, win_length, spec.device, dtype)
     cover = sig.shape[-1]
     if full > cover:
         # past the last frame's span both are 0: the clamp below turns

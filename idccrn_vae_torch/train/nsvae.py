@@ -40,6 +40,8 @@ class NsvaeTrainer(Trainer):
                  weight_decay: float = 1e-3, seed: int = 123,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
+        pre_cfg.reject_int8_training("NsvaeTrainer")
+        noisy_cfg.reject_int8_training("NsvaeTrainer")
         refuse_remat(pre_cfg, "NsvaeTrainer")
         refuse_remat(noisy_cfg, "NsvaeTrainer")
         self.pre_cfg = pre_cfg

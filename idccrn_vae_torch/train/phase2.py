@@ -84,6 +84,8 @@ class Phase2Trainer(Trainer):
                  weight_decay: float = 1e-3, seed: int = 123,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
+        enc_cfg.reject_int8_training("Phase2Trainer")
+        dec_cfg.reject_int8_training("Phase2Trainer")
         refuse_remat(enc_cfg, "Phase2Trainer")
         refuse_remat(dec_cfg, "Phase2Trainer")
         if decode_update not in DECODE_UPDATES:

@@ -43,6 +43,7 @@ class PretrainTrainer(Trainer):
                  datanorm: Optional[Tuple[np.ndarray, np.ndarray]] = None,
                  seed: int = 123, device: DeviceLike = None):
         self.device = resolve_device(device)
+        cfg.reject_int8_training("PretrainTrainer")
         refuse_remat(cfg, "PretrainTrainer")
         self.cfg = cfg
         self.loss = loss

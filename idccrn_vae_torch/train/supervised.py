@@ -34,6 +34,7 @@ class SupervisedTrainer(Trainer):
                  datanorm: Optional[Tuple[np.ndarray, np.ndarray]] = None,
                  seed: int = 123, device: DeviceLike = None):
         self.device = resolve_device(device)
+        cfg.reject_int8_training("SupervisedTrainer")
         refuse_remat(cfg, "SupervisedTrainer")
         self.cfg = cfg
         self.loss = loss

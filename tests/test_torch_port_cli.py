@@ -70,18 +70,26 @@ def _init(model_cls, jc, seed, dn=None):
 
 def _save_both(root, name, meta, best):
     """Write `best` = {key: (JAX vars, port state_dict)}, or one such pair
-    for a bare snapshot, as a JAX and a port checkpoint dir under
-    root/j/name and root/t/name."""
-    dirs = []
-    for side, ckpt_cls in ((0, JaxCkpt), (1, TorchCkpt)):
-        d = os.path.join(str(root), "jt"[side], name)
-        ckpt = ckpt_cls(d)
-        ckpt.save_meta(meta)
-        pick = lambda tree: (tree[side] if isinstance(tree, tuple)
-                             else {k: v[side] for k, v in tree.items()})
-        ckpt.save_best(pick(best))
-        dirs.append(d)
-    return dirs
+    for a bare snapshot, as a JAX checkpoint dir under root/j/name, and
+    the port's dir under root/t/name made from it by
+    port_tools/convert_jax_checkpoint.py; the port state_dicts of `best`
+    must equal what the converter wrote."""
+    from port_tools.convert_jax_checkpoint import convert
+
+    jdir = os.path.join(str(root), "j", name)
+    ckpt = JaxCkpt(jdir)
+    ckpt.save_meta(meta)
+    pick = lambda tree, side: (tree[side] if isinstance(tree, tuple)
+                               else {k: v[side] for k, v in tree.items()})
+    ckpt.save_best(pick(best, 0))
+    tdir = convert(jdir, os.path.join(str(root), "t", name))
+    got, want = TorchCkpt(tdir).load_best(), pick(best, 1)
+    for sd_got, sd_want in ([(got, want)] if isinstance(best, tuple) else
+                            ((got[k], want[k]) for k in want)):
+        assert sorted(sd_got) == sorted(sd_want)
+        for k in sd_want:
+            assert torch.equal(sd_got[k], sd_want[k]), k
+    return [jdir, tdir]
 
 
 def _asdict(cfg):
@@ -183,13 +191,18 @@ def test_test_enhance_rejects_unported_modes(tmp_path, data):
     base = ["--nsvae_dir", nsvae[1], "--decoder_dir", cvae[1], "--noisy_dir",
             data["noisy"], "--clean_dir", data["clean"], "--out_dir",
             str(tmp_path / "o"), "--device", "cpu"]
-    with pytest.raises(SystemExit, match="item 19"):
-        t_main(base + ["--compute", "int8"])
     with pytest.raises(SystemExit, match="item 17"):
         t_main(base + ["--n_devices", "2"])
     with pytest.raises(SystemExit, match="decoder_dir"):
         t_main(base[:2] + base[4:])
     assert not (tmp_path / "o").exists()
+    # --compute int8 serves now; at these widths no stage reaches
+    # quant_min_ch 16 (tests/test_torch_port_int8.py holds the
+    # quantized stages against JAX)
+    res = t_main(base + ["--compute", "int8", "--num_samples", "2"])
+    assert len(res["per_utterance"]) == len(LENGTHS)
+    assert all(np.isfinite(list(v.values())).all()
+               for v in res["per_utterance"].values())
 
 
 def test_test_prevae_matches_jax(tmp_path, monkeypatch, data):
@@ -226,7 +239,9 @@ def _supervised_dirs(root, cfg, dn):
     final = _init(JaxSupervised, cfg, 14, jdn)
     dirs = _save_both(root, "sup", {"config": _asdict(cfg),
                                     "datanorm": datanorm_to_meta(dn)}, best)
-    # state.pt in the layout each framework's test_supervised reads
+    # state.pt in the layout each framework's test_supervised reads; it
+    # holds the model only, not a trainer's state, so it is written
+    # by hand on both sides
     JaxCkpt(dirs[0]).save_state({"model": final[0]})
     TorchCkpt(dirs[1]).save_state({"models": {"model": final[1]}})
     return dirs

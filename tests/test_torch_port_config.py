@@ -43,7 +43,19 @@ def test_fields_and_defaults_match_jax():
 
 
 def test_compute_dtype():
+    """int8 serves: its unquantized operands ride bf16, its convs
+    quantize, and training refuses it with the JAX package's error."""
     assert tcfg.DccrnConfig(compute="f32").compute_dtype == torch.float32
     assert tcfg.DccrnConfig(compute="bf16").compute_dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="queue 1 item 19"):
-        tcfg.DccrnConfig(compute="int8").compute_dtype
+    assert tcfg.DccrnConfig(compute="int8").compute_dtype == torch.bfloat16
+    for compute in ("f32", "bf16", "int8"):
+        t, j = (tcfg.DccrnConfig(compute=compute),
+                jcfg.DccrnConfig(compute=compute))
+        assert t.conv_quant == j.conv_quant == (compute == "int8")
+        if compute != "int8":
+            t.reject_int8_training("Trainer")
+    with pytest.raises(ValueError) as terr:
+        tcfg.DccrnConfig(compute="int8").reject_int8_training("Trainer")
+    with pytest.raises(ValueError) as jerr:
+        jcfg.DccrnConfig(compute="int8").reject_int8_training("Trainer")
+    assert str(terr.value) == str(jerr.value)

@@ -127,9 +127,6 @@ def _invalid_enhancer(case):
     if case == "latent_to_use_3":
         return tenhance.Enhancer(single, single, enc[single], dec,
                                  latent_to_use=3, **kw)
-    if case == "int8":
-        _, int8 = configs(compute="int8")
-        return tenhance.Enhancer(int8, single, enc[single], dec, **kw)
     if case == "sample_chunks":
         kw["num_samples"] = 3
         return tenhance.Enhancer(single, single, enc[single], dec,
@@ -143,13 +140,25 @@ def _invalid_enhancer(case):
     ("mask_with_one_latent", ValueError, "latent_to_use=2"),
     ("unknown_outtype", ValueError, "unknown outtype"),
     ("latent_to_use_3", ValueError, "latent_to_use must be 1 or 2"),
-    ("int8", NotImplementedError, "item 19"),
     ("sample_chunks", ValueError, "sample_chunks"),
 ])
 def test_unported_serving_modes_raise(case, error, match):
     """The serving validation that still applies: the dual-latent path
     needs a latent_num=2 encoder and noise decoder weights, the mask
-    out-types need latent_to_use=2, int8 is not ported, and
-    sample_chunks must divide num_samples."""
+    out-types need latent_to_use=2, and sample_chunks must divide
+    num_samples."""
     with pytest.raises(error, match=match):
         _invalid_enhancer(case)
+
+
+def test_int8_enhancer_serves():
+    """compute='int8' (once refused here) builds and serves: finite
+    output of the input's length; tests/test_torch_port_int8.py holds
+    it against JAX."""
+    _, int8 = configs(compute="int8", quant_min_ch=2)
+    enh = tenhance.Enhancer(int8, int8,
+                            NsvaeEncoder(int8, device="cpu").state_dict(),
+                            VaeDecoder(int8, device="cpu").state_dict(),
+                            num_samples=1, device="cpu")
+    out = enh.enhance_batch(wav_batch(3, 2, 2000))
+    assert out.shape == (2, 2000) and bool(torch.isfinite(out).all())

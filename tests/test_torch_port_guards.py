@@ -1,8 +1,9 @@
-"""Guards around the port: it imports neither JAX, orbax nor the JAX
-package, it never drifts to the CPU on its own (the entry points and
-the CLIs), `chip_smoke.py` refuses to run without a card, every CLI
-answers --help, and the weight bridge round-trips through the JAX
-package's checkpoint importer."""
+"""Guards around the port: it imports neither JAX, orbax, the JAX
+package nor `port_tools` (which needs both frameworks), the JAX package
+imports neither the port nor `port_tools`, the port never drifts to the
+CPU on its own (the entry points and the CLIs), `chip_smoke.py` refuses
+to run without a card, every CLI answers --help, and the weight bridge
+round-trips through the JAX package's checkpoint importer."""
 
 import os
 import shutil
@@ -51,11 +52,23 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "idccrn_vae_tpu",
-                                    "orbax"))
+                                    "orbax", "port_tools"))
 for sub in ("cli", "data", "utils", "train", "eval", "models", "ops",
             "losses", "tools"):
     assert any(n.startswith(f"{pkg.__name__}.{sub}.") for n in names), sub
 print(len(names), bad)
+assert not bad, bad
+"""
+
+
+_IMPORT_JAX_PACKAGE = """
+import importlib, pkgutil, sys
+import idccrn_vae_tpu as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("idccrn_vae_torch", "port_tools"))
+print(bad)
 assert not bad, bad
 """
 
@@ -73,9 +86,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert int(count) >= 60 and bad.strip() == "[]"
 
 
+def test_jax_package_imports_neither_the_port_nor_port_tools():
+    r = _run(["-c", _IMPORT_JAX_PACKAGE], ROOT, JAX_PLATFORMS="cpu")
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip().endswith("[]")
+
+
 CLIS = ("test_enhance", "test_prevae", "test_supervised", "stream_enhance",
         "train_vae", "train_nsvae", "train_phase2", "train_supervised",
-        "cal_mean_std", "dnsmos")
+        "cal_mean_std", "dnsmos", "export_model", "run_artifact")
 
 
 @pytest.mark.parametrize("name", CLIS + ("make_synth_corpus",))
@@ -121,7 +140,11 @@ def test_cli_fails_without_a_card_before_reading_data(name, tmp_path):
             "cal_mean_std": ["--data_dir", str(wavs), "--mean_out",
                              str(out / "mean.txt"), "--std_out",
                              str(out / "std.txt")],
-            "dnsmos": ["-t", str(wavs), "-o", str(out / "dnsmos.csv")]}[name]
+            "dnsmos": ["-t", str(wavs), "-o", str(out / "dnsmos.csv")],
+            "export_model": ["--nsvae_dir", str(tmp_path), "--decoder_dir",
+                             str(tmp_path)],
+            "run_artifact": ["--artifact_dir", str(tmp_path), "--in_dir",
+                             str(wavs)]}[name]
     if not name.startswith(("train_", "cal_", "dnsmos")):
         args += ["--out_dir", str(out)]
     r = _run(["-m", f"idccrn_vae_torch.cli.{name}", *args], ROOT,

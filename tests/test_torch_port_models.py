@@ -110,16 +110,27 @@ def test_vae_decoder_matches_jax(compute, ns, extra):
 
 def test_modules_refuse_train_mode_and_int8():
     """Train mode runs (held against JAX in test_torch_port_train_ops.py
-    and test_torch_port_trainers.py); int8 is not ported."""
+    and test_torch_port_trainers.py); int8 modules build, and quantize
+    in eval mode only (the JAX package's `not train`): a train-mode int8
+    forward is the bf16 one."""
     _, tc = configs()
     enc = NsvaeEncoder(tc, device="cpu").train()
     out = enc(torch.randn(2, 1600))
     assert out.gauss_speech.mu_r.requires_grad
     assert all(m.count == 1 for m in enc.modules()
                if isinstance(m, ComplexBatchNorm))
-    _, int8 = configs(compute="int8")
-    with pytest.raises(NotImplementedError, match="item 19"):
-        VaeDecoder(int8, device="cpu")
+    wav = torch.randn(2, 1600)
+    mus = {}
+    for compute in ("bf16", "int8"):
+        _, cfg = configs(compute=compute, quant_min_ch=2)
+        enc = NsvaeEncoder(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(1))
+        for train in (True, False):
+            with torch.no_grad():
+                mus[compute, train] = enc.train(train)(
+                    wav, num_samples=1).gauss_speech.mu_r
+    assert torch.equal(mus["int8", True], mus["bf16", True])
+    assert not torch.equal(mus["int8", False], mus["bf16", False])
 
 
 def test_seeded_init_is_deterministic_and_device_independent():
