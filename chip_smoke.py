@@ -53,7 +53,7 @@ one summary line each:
                    B=32 and 128 beside bf16's (int8_throughput); each
                    quantized conv at B=32, quantize + im2col + _int_mm +
                    dequantize against the bf16 cuDNN conv (int8_stage)
-  export           torch.export of clean_direct (bf16, 3 s) on the card,
+  export           torch.export of clean_direct (bf16, 1 s) on the card,
                    timed; the artifact against the eager program with the
                    same latent draws at B=1 and 32; RTFx of both in
                    turns; an f32 export (0.25 s) against eager, TF32 off;
@@ -126,6 +126,20 @@ Training, at the configs' inis (3 s segments of 481 frames):
                    train_supervised --data_norm, train_phase2 classical
                    (--load_de) and --adversarial, the adversarial run
                    resumed, test_enhance --phase 2, test_supervised
+  ddp              data parallelism: world 2 on Gloo with CUDA tensors,
+                   both ranks on this card (NCCL refuses two ranks on
+                   one device), spawned here; one f32 step of each
+                   trainer at its ini's batch (pretraining with the MI
+                   term) against the same step in one process: losses,
+                   gradients, BN statistics and counters; ms per step of
+                   both (not a scaling figure)
+  remat            cfg.remat: a CVAE step at B=16 with remat on against
+                   off (loss, gradients, BN statistics, counters at 1),
+                   then ms per step and peak memory of each
+  ddp_cli          train_vae (2 epochs) under a one-rank NCCL group
+                   joined from the torchrun environment, its curves
+                   against train_cli's plain run; train_vae --n_devices 2
+                   without a group, which resolves to world 1 here
 
 `--only serving|eval|train` runs one group of phases (eval brings
 serving along: the CLIs read its weights).
@@ -926,6 +940,9 @@ STAGE_ITERS = 20
 EXPORT_F32_REL = 1e-5
 EXPORT_BF16_REL = 2.0 ** -8
 EXPORT_F32_S = 0.25  # the f32 export's length: tracing time grows with it
+# the bf16 export's clip: tracing costs ~11 ms of host time per graph node,
+# and the node count grows with the frames of the unrolled LSTM
+EXPORT_S = 1
 STREAM_EXPORT_CHUNKS = 144
 EXPORT_CLI_S = 0.5  # export_cli's bucket, windowed over the eval corpus
 
@@ -1060,8 +1077,9 @@ def _artifact_check(phase: str, got, want, rel: float, **fields) -> None:
     _check(err <= rel * scale, f"{phase} rel err {err / scale}")
 
 
-def _chained_rtfx(fn, b: int, device: str, iters: int) -> float:
-    n = CLIP_S * FS
+def _chained_rtfx(fn, b: int, device: str, iters: int,
+                  seconds: int = CLIP_S) -> float:
+    n = seconds * FS
     gen = torch.Generator().manual_seed(SEED + 61)
     wav = (0.1 * torch.randn(b, n, generator=gen)).to(device)
     out = fn(wav)
@@ -1070,24 +1088,24 @@ def _chained_rtfx(fn, b: int, device: str, iters: int) -> float:
     for _ in range(iters):
         out = fn(wav + 1e-6 * out)
     torch.cuda.synchronize()
-    return iters * b * CLIP_S / (time.perf_counter() - t0)
+    return iters * b * seconds / (time.perf_counter() - t0)
 
 
 def phase_export(weights, device: str, smi: str) -> None:
-    """torch.export of clean_direct at 3 s (bf16) on the card, timed; the
+    """torch.export of clean_direct at 1 s (bf16) on the card, timed; the
     artifact against the eager program with the same draws at B=1 and
     32; RTFx of both; an f32 export against eager with TF32 off; the
     streaming artifact against StreamingEnhancer over 144 chunks."""
     from idccrn_vae_torch.eval import export
 
-    n = CLIP_S * FS
+    n = EXPORT_S * FS
     enh = _enhancer("bf16", weights, device)
     serving = export.serving_fn_nsvae(enh)
     t0 = time.perf_counter()
     prog = export.export_serving(serving, n, device)
     export_s = time.perf_counter() - t0
     module = prog.module()
-    _line("export", program="clean_direct", compute="bf16", clip_s=CLIP_S,
+    _line("export", program="clean_direct", compute="bf16", clip_s=EXPORT_S,
           export_s=f"{export_s:.1f}", graph_nodes=len(prog.graph.nodes))
     gen = torch.Generator().manual_seed(SEED + 60)
     for b in (1, THROUGHPUT_BATCHES[0]):
@@ -1108,10 +1126,10 @@ def phase_export(weights, device: str, smi: str) -> None:
         return enh.forward(w, noise=tuple(serving.draw_eps(b, n, gen,
                                                             device)[:2]))
 
-    rtfx = [(name, _chained_rtfx(fn, b, device, INT8_ITERS))
+    rtfx = [(name, _chained_rtfx(fn, b, device, INT8_ITERS, EXPORT_S))
             for name, fn in (("eager", eager), ("artifact", artifact),
                              ("artifact", artifact), ("eager", eager))]
-    _line("export", batch=b, clip_s=CLIP_S, iters=INT8_ITERS,
+    _line("export", batch=b, clip_s=EXPORT_S, iters=INT8_ITERS,
           rtfx=",".join(f"{k}:{v:.1f}" for k, v in rtfx),
           order="eager,artifact,artifact,eager", card=json.dumps(smi))
 
@@ -1674,16 +1692,17 @@ TRAIN_UTTS = (16, 12)  # train, val utterances of 6.5 s: 2 segments each
 TRAIN_EPOCHS = 2
 
 
-def _pretrain_config(compute: str):
+def _pretrain_config(compute: str, remat: bool = False):
     """configs/pretrained_cvae.ini's usage line: causal, zdim 128,
     num_samples 5, --skip_padding (zero skips)."""
     from idccrn_vae_torch.models.config import DccrnConfig
 
     return DccrnConfig(causal=True, zdim=128, num_samples=5,
-                       skip_mode="zero", compute=compute)
+                       skip_mode="zero", compute=compute, remat=remat)
 
 
-def _pretrain_trainer(compute: str, device: str):
+def _pretrain_trainer(compute: str, device: str, mi_weight: float = 0.0,
+                      remat: bool = False):
     """The CVAE trainer of the usage line (kl_weight 0.01, no warm-up,
     recon weights 1,1,0, lr 3e-4); its weights come from seeded CPU
     generators, so every call builds the same model."""
@@ -1691,8 +1710,9 @@ def _pretrain_trainer(compute: str, device: str):
     from idccrn_vae_torch.train.pretrain import PretrainTrainer
 
     loss = PretrainVaeLoss(np.full(0, 0.01, np.float32), 0.01,
+                           mi_weight=mi_weight,
                            recon_loss_weight=(1.0, 1.0, 0.0), num_samples=5)
-    return PretrainTrainer(_pretrain_config(compute), loss, 3e-4,
+    return PretrainTrainer(_pretrain_config(compute, remat), loss, 3e-4,
                            seed=SEED + 60, device=device)
 
 
@@ -1726,16 +1746,19 @@ def _grads(module) -> dict:
 
 
 def _check_grads(phase: str, card: dict, cpu: dict, card2: dict,
-                 prelu_tol: float = TRAIN_GRAD_REL_L2, **fields) -> None:
+                 prelu_tol: float = TRAIN_GRAD_REL_L2, spread_of=None,
+                 **fields) -> None:
     """Card gradients against the CPU's, per parameter and over the whole
-    model; `card2` is a second card run of the same step, whose spread
-    is printed beside the card-vs-CPU error. A PReLU slope is held to
-    `prelu_tol`, every other gradient to TRAIN_GRAD_REL_L2."""
+    model; `card2` is a second card run of the same step as `spread_of`
+    (default: `card`), whose spread is printed beside the card-vs-CPU
+    error. A PReLU slope is held to `prelu_tol`, every other gradient to
+    TRAIN_GRAD_REL_L2."""
+    spread_of = card if spread_of is None else spread_of
     _check(sorted(card) == sorted(cpu) == sorted(card2) and len(cpu) > 0,
            f"{phase}: gradients of different parameters")
     total = sum(float(g.norm()) ** 2 for g in cpu.values()) ** 0.5
     worst = {False: (0.0, ""), True: (0.0, "")}  # keyed by "is a slope"
-    spread, spread_name, zero = 0.0, "", 0
+    spread, spread_name, zero, over = 0.0, "", 0, []
     for k, ref in cpu.items():
         _check(bool(torch.isfinite(card[k]).all()),
                f"{phase}: gradient of {k} is not finite")
@@ -1744,12 +1767,16 @@ def _check_grads(phase: str, card: dict, cpu: dict, card2: dict,
             _check(float((card[k] - ref).norm()) <= 1e-6 * total,
                    f"{phase}: gradient of {k}")
             continue
-        gap = float((card2[k] - card[k]).norm() / ref.norm())
+        gap = float((card2[k] - spread_of[k]).norm() / ref.norm())
         if gap > spread:
             spread, spread_name = gap, k
         slope = k.endswith("prelu.weight")
-        if _rel_l2(card[k], ref) > worst[slope][0]:
-            worst[slope] = (_rel_l2(card[k], ref), k)
+        err = _rel_l2(card[k], ref)
+        if err > worst[slope][0]:
+            worst[slope] = (err, k)
+        bound = prelu_tol if slope else TRAIN_GRAD_REL_L2
+        if err > bound:
+            over.append(f"{k} rel L2 {err:.3e} > {bound:.3e}")
     cat = lambda g: torch.cat([g[k].flatten() for k in sorted(cpu)])
     _line(phase, **fields, params=len(cpu), zero_up_to_rounding=zero,
           grad_norm=f"{total:.3e}",
@@ -1759,10 +1786,7 @@ def _check_grads(phase: str, card: dict, cpu: dict, card2: dict,
           worst_prelu_rel_l2=f"{worst[True][0]:.3e}",
           worst_prelu=worst[True][1], prelu_tol=prelu_tol,
           card_vs_card_worst=f"{spread:.3e}", card_vs_card_param=spread_name)
-    for slope, tol in ((False, TRAIN_GRAD_REL_L2), (True, prelu_tol)):
-        _check(worst[slope][0] <= tol,
-               f"{phase}: gradient of {worst[slope][1]} rel L2 "
-               f"{worst[slope][0]}")
+    _check(not over, f"{phase}: gradient of {'; '.join(over)}")
 
 
 def _check_loss(phase: str, card: dict, cpu: dict, key: str = "total",
@@ -2217,6 +2241,254 @@ def phase_train2_cli(root: str, smi: str, dirs: dict, runs: dict) -> None:
           phase2=_means(res), supervised=_means(res_sup))
 
 
+# ------------------------------------------ data parallelism and remat
+
+DDP_WORLD = 2
+DDP_ITERS = 3
+DDP_MI_WEIGHT = 0.2
+# world 2 against world 1 on the card, TF32 off: the standing card
+# bounds (TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2, PRELU_GRAD_REL_L2); each
+# model's BN running statistics, concatenated, to DDP_STAT_REL relative
+# L2 (they are the first step's batch statistics: sums in another order)
+DDP_STAT_REL = 1e-4
+DDP_TIMEOUT_S = 300
+DDP_KINDS = ("pretrain", "nsvae", "adversarial", "supervised")
+# ddp_cli's curves against the plain run's: test_torch_port_convert.py's
+# trajectory bound (Adam's normalisation amplifies f32 differences of
+# near-zero gradients over the epochs)
+DDP_CURVE_REL = 1e-3
+
+
+def _ddp_case(kind: str, device: str):
+    """(trainer, global batch on the CPU) of one trainer at its ini's
+    batch and the reference width, seeded: pretraining with the MI term
+    (B=16, S=5), the NSVAE (B=24), adversarial phase 2 (B=16, d_step 1)
+    and the supervised DCCRN with datanorm (B=16)."""
+    gen = torch.Generator().manual_seed(SEED + 110)
+    if kind == "pretrain":
+        return (_pretrain_trainer("f32", device, DDP_MI_WEIGHT),
+                _segments(gen, PRETRAIN_BATCH))
+    if kind == "nsvae":
+        return _nsvae_trainer("f32", device), _segments(gen, NSVAE_BATCH, 3)
+    if kind == "adversarial":
+        return (_phase2_trainer("f32", device, adversarial=True),
+                _segments(gen, PHASE2_BATCH, 3))
+    dn = tuple(t.numpy() for t in _datanorm(gen))
+    return (_supervised_trainer("f32", device, dn),
+            _segments(gen, SUPERVISED_BATCH, 2))
+
+
+def _ddp_steps(device: str) -> dict:
+    """One f32 step of each trainer, in this process or as a rank of a
+    data-parallel group: kind -> (metrics averaged over the ranks,
+    gradients of the trained models, every model's BN buffers, ms per
+    step over DDP_ITERS further steps). TF32 is off for all of it, the
+    timed steps too, so both worlds time the same arithmetic. The step's
+    generator is seeded alike on every rank, which draws the global
+    batch's noise."""
+    with _NoTf32():
+        return _ddp_steps_f32(device)
+
+
+def _ddp_steps_f32(device: str) -> dict:
+    from idccrn_vae_torch.parallel import distributed
+
+    out = {}
+    for kind in DDP_KINDS:
+        trainer, batch = _ddp_case(kind, device)
+        gen = torch.Generator(device).manual_seed(SEED + 111)
+        metrics = trainer.train_step(batch, gen, 0)
+        keys = sorted(metrics)
+        sums = distributed.all_reduce_floats(
+            [float(metrics[k]) for k in keys], device)
+        metrics = {k: v / distributed.world() for k, v in zip(keys, sums)}
+        grads = {n: g for n, m in trainer.models.items() if (g := _grads(m))}
+        stats = {n: _buffers(m) for n, m in trainer.models.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DDP_ITERS):
+            trainer.train_step(batch, gen, 0)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / DDP_ITERS
+        out[kind] = (metrics, grads, stats, ms)
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def _buffers(module) -> dict:
+    """A copy of a module's BN running statistics and counters."""
+    return {k: b.detach().to("cpu", copy=True)
+            for k, b in module.named_buffers() if not k.startswith("dn_")}
+
+
+def _check_stats(phase: str, got: dict, want: dict, **fields) -> None:
+    """Each model's BN counters equal, its running statistics to
+    DDP_STAT_REL relative L2 (concatenated)."""
+    for name in want:
+        counts = {k for k in want[name] if k.endswith("count")}
+        _check(all(torch.equal(got[name][k], want[name][k]) for k in counts),
+               f"{phase}: {name} BN counters differ")
+        keys = sorted(set(want[name]) - counts)
+        if not keys:
+            continue
+        cat = lambda d: torch.cat([d[k].float().flatten() for k in keys])
+        rel = _rel_l2(cat(got[name]), cat(want[name]))
+        _line(phase, **fields, model=name, bn_buffers=len(keys),
+              counters=sorted({int(want[name][k]) for k in counts}),
+              stats_rel_l2=f"{rel:.3e}", tol=DDP_STAT_REL)
+        _check(rel <= DDP_STAT_REL, f"{phase}: {name} BN statistics {rel}")
+
+
+def phase_ddp(device: str, smi: str) -> None:
+    """Data parallelism on the card: world 2 on Gloo with CUDA tensors,
+    both ranks on this card (NCCL refuses two ranks on one device),
+    spawned here; one step of each trainer at its ini's batch against the
+    same step in one process, twice (the card's own spread): the losses,
+    every gradient, the BN statistics and counters; ms per step of both.
+    The world-2 time carries Gloo's staging through host memory and two
+    processes sharing one card: it is not a scaling figure."""
+    import datetime
+
+    from idccrn_vae_torch.parallel import distributed
+
+    t0 = time.perf_counter()
+    one, one2 = _ddp_steps(device), _ddp_steps(device)
+    one_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    two = distributed.spawn(
+        _ddp_steps, DDP_WORLD, args=(f"{device}:0",), backend="gloo",
+        device=f"{device}:0",
+        timeout=datetime.timedelta(seconds=DDP_TIMEOUT_S),
+        deadline=DDP_TIMEOUT_S)
+    two_s = time.perf_counter() - t0
+    _line("ddp", world=DDP_WORLD, backend="gloo", tensors="cuda:0",
+          why="NCCL refuses two ranks on one device",
+          world1_s=f"{one_s:.1f}", world2_s=f"{two_s:.1f}",
+          card=json.dumps(smi))
+    for kind in DDP_KINDS:
+        (m1, g1, s1, ms1), (_, g1b, _, _) = one[kind], one2[kind]
+        m2, g2, s2, ms2 = two[kind]
+        fields = dict(trainer=kind, vs="world 1", tf32="off")
+        for key in ("total", "dis") if kind == "adversarial" else ("total",):
+            _check_loss("ddp", m2, m1, key=key, **fields)
+        for name in g1:
+            _check_grads("ddp", g2[name], g1[name], g1b[name],
+                         prelu_tol=PRELU_GRAD_REL_L2, spread_of=g1[name],
+                         model=name, **fields)
+        _check_stats("ddp", s2, s1, **fields)
+        _line("ddp", trainer=kind, ms_per_step_world1=f"{ms1:.2f}",
+              ms_per_step_world2=f"{ms2:.2f}", iters=DDP_ITERS,
+              scaling="none: two ranks share one card, Gloo stages "
+                      "every collective through host memory")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_ddp_cli(root: str, smi: str, dirs: dict, runs: dict) -> None:
+    """train_vae on train_cli's corpus and ini, 2 epochs, under a one-rank
+    NCCL group joined from the environment torchrun sets: its
+    loss_curves.json against train_cli's plain run of the same ini,
+    flags and seed (to DDP_CURVE_REL: the runs differ in the order of the
+    BN sums, which Adam carries over the epochs), rank 0's run dir; then
+    train_vae without a group and with --n_devices 2 on this one-card
+    host, which resolves to world 1 (JAX's auto_mesh rule)."""
+    from idccrn_vae_torch.cli import train_vae
+    from idccrn_vae_torch.parallel import distributed
+    from idccrn_vae_torch.parallel.mesh import auto_world
+
+    user = {"train_data_dir": dirs["clean_train"],
+            "val_data_dir": dirs["clean_val"]}
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())}
+    ini = _train_ini("pretrained_cvae.ini", os.path.join(root, "ddp.ini"),
+                     dict(user, saved_root=os.path.join(root, "ddp_runs")),
+                     TRAIN_EPOCHS)
+    os.environ.update(env)
+    try:
+        (curves, best, run), wall = _timed_cli(
+            train_vae.main, ["--cfg_file", ini, *CVAE_FLAGS])
+    finally:
+        for k in env:
+            del os.environ[k]
+    _check(not distributed.active(), "ddp_cli: the CLI left its group")
+    _check_run("ddp_cli nccl", curves, best, run, TRAIN_EPOCHS,
+               TRAIN_EPOCHS - 1)
+    with open(os.path.join(run, "train.log")) as f:
+        log = f.read()
+    _check(log.count("data-parallel world 1") == 1, "ddp_cli: train.log")
+    with open(os.path.join(runs["clean"], "loss_curves.json")) as f:
+        plain = json.load(f)
+    worst, where = 0.0, ""
+    for split in ("train", "val"):
+        for epoch, (got, want) in enumerate(zip(curves[split],
+                                                plain[split])):
+            _check(set(got) == set(want), "ddp_cli: metric keys")
+            for k in want:
+                rel = abs(got[k] - want[k]) / max(abs(want[k]), 1e-12)
+                if rel > worst:
+                    worst, where = rel, f"{split}[{epoch}].{k}"
+    _line("ddp_cli", backend="nccl", world=1, env="torchrun",
+          wall_s=f"{wall:.2f}", vs="train_cli plain run",
+          worst_curve_rel=f"{worst:.3e}", worst_at=where, tol=DDP_CURVE_REL,
+          card=json.dumps(smi))
+    _check(worst <= DDP_CURVE_REL, f"ddp_cli: {where} rel {worst}")
+    ini = _train_ini("pretrained_cvae.ini", os.path.join(root, "ddp2.ini"),
+                     dict(user, saved_root=os.path.join(root, "ddp2_runs")),
+                     1)
+    (curves, best, run), wall = _timed_cli(
+        train_vae.main, ["--cfg_file", ini, *CVAE_FLAGS, "--n_devices", "2"])
+    _check_run("ddp_cli n_devices 2", curves, best, run, 1, 0)
+    with open(os.path.join(run, "train.log")) as f:
+        resolved = "data-parallel world 1" in f.read()
+    world = auto_world(PRETRAIN_BATCH, 2, "cuda")
+    _line("ddp_cli", n_devices=2, cards=torch.cuda.device_count(),
+          auto_world=world, train_log_world1=resolved,
+          wall_s=f"{wall:.2f}", epochs=1)
+    _check(world == 1 and resolved, "ddp_cli: --n_devices 2 on one card")
+
+
+def phase_remat(device: str, smi: str) -> None:
+    """cfg.remat on the card: a CVAE step at B=16, f32 (TF32 off), with
+    remat on against off (twice, the card's spread): the loss, every
+    gradient, the BN statistics, and every counter at 1 (the running
+    update happened once); then warm Adam steps of each, with their peak
+    memory."""
+    gen = torch.Generator().manual_seed(SEED + 120)
+    batch = _segments(gen, PRETRAIN_BATCH).to(device)
+
+    def step(remat):
+        trainer = _pretrain_trainer("f32", device, remat=remat)
+        g = torch.Generator(device).manual_seed(SEED + 121)
+        with _NoTf32():
+            metrics = trainer.train_step(batch, g, 0)
+        return (metrics, {n: _grads(m) for n, m in trainer.models.items()},
+                {n: _buffers(m) for n, m in trainer.models.items()})
+
+    (m_on, g_on, s_on), (m_off, g_off, s_off), (_, g_off2, _) = (
+        step(True), step(False), step(False))
+    fields = dict(vs="remat off", batch=PRETRAIN_BATCH, tf32="off")
+    _check_loss("remat", m_on, m_off, **fields)
+    for name in g_off:
+        _check_grads("remat", g_on[name], g_off[name], g_off2[name],
+                     spread_of=g_off[name], model=name, **fields)
+    _check_stats("remat", s_on, s_off, **fields)
+    _check(all(int(v) == 1 for d in s_on.values() for k, v in d.items()
+               if k.endswith("count")), "remat: a BN counter is not 1")
+    torch.cuda.empty_cache()
+    for remat in (False, True):
+        _time_steps("remat", _pretrain_trainer("f32", device, remat=remat),
+                    batch, device, smi, remat=remat, optimizer="adam")
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace-dir", default=None,
@@ -2308,9 +2580,12 @@ def main(argv=None) -> int:
         del trainer, batch
         timed("supervised_step", phase_supervised_step, device, smi)
         torch.cuda.empty_cache()
+        timed("ddp", phase_ddp, device, smi)
+        timed("remat", phase_remat, device, smi)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
             dirs, runs = timed("train_cli", phase_train_cli, root, smi)
             timed("train2_cli", phase_train2_cli, root, smi, dirs, runs)
+            timed("ddp_cli", phase_ddp_cli, root, smi, dirs, runs)
         _line("train_phases", seconds=f"{time.perf_counter() - t_train:.1f}",
               **{f"{k}_s": v for k, v in walls.items()})
     # no hand-written kernel is on these paths yet

@@ -174,7 +174,11 @@ def resolve_save_dir(args, ini: IniConfig, model_name: str) -> str:
                 "--reload requires --reload_savedir (the existing run "
                 "directory to resume)")
         return args.reload_savedir
-    return make_save_dir(ini, model_name)
+    from idccrn_vae_torch.parallel import distributed
+
+    # rank 0 makes the timestamped dir; the other ranks take its name
+    return distributed.broadcast_object(
+        make_save_dir(ini, model_name) if distributed.is_primary() else None)
 
 
 def add_common_train_flags(p: argparse.ArgumentParser):
@@ -195,7 +199,10 @@ def add_common_train_flags(p: argparse.ArgumentParser):
                    help="first conv width; channels are (1, d, 2d, 4d, "
                         "4d, 8d, 8d) like net_config.py")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="data-parallel device count; only 1 is ported")
+                   help="data-parallel world size: the largest count up "
+                        "to this (default: every card) that divides the "
+                        "batch, one rank per card (NCCL); with --device "
+                        "cpu, this many Gloo processes")
     p.add_argument("--seed", type=int, default=123,
                    help="init/sampling seed (the reference pins 123)")
     p.add_argument("--donate", action="store_true",
@@ -206,17 +213,62 @@ def add_common_train_flags(p: argparse.ArgumentParser):
     return p
 
 
-def check_train_args(args) -> torch.device:
-    """The device of a training CLI (the card unless --device names
-    another; without a card this raises before any data is read), and
-    the flags the port does not train with yet."""
-    from idccrn_vae_torch.device import resolve_device
+def data_parallel(main, argv, n_devices: Optional[int], batch_size: int,
+                  device: torch.device, body):
+    """Run a CLI's `body()` data-parallel, as the JAX CLIs run their step
+    over `auto_mesh(batch_size, n_devices)`.
 
-    device = resolve_device(args.device)
-    if args.n_devices is not None and args.n_devices > 1:
-        raise SystemExit("data-parallel training (--n_devices > 1) is not "
-                         "ported to idccrn_vae_torch yet (ROADMAP item 17)")
-    return device
+      * Inside a process group (a rank this function spawned, or a caller
+        that made one), `body()` runs as this group's rank.
+      * Under `torchrun` (RANK and WORLD_SIZE set) this process joins
+        that group (NCCL on cards, Gloo on the CPU), runs `body()` and
+        leaves it.
+      * Otherwise the world size is `auto_world(batch_size, n_devices,
+        device)`: at 1, `body()` runs in this process with no group; above
+        1, that many ranks are spawned (one card each, or Gloo processes
+        for --device cpu), each calling `main(argv)` again, and rank 0's
+        return value is returned.
+
+    A failed group start raises; nothing falls back to one process."""
+    import sys
+
+    from idccrn_vae_torch.parallel import distributed
+    from idccrn_vae_torch.parallel.mesh import auto_world
+
+    if distributed.active():
+        distributed.local_batch_size(batch_size)
+        return body()
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        if device.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        distributed.initialize(device=device)
+        try:
+            distributed.local_batch_size(batch_size)
+            return body()
+        finally:
+            distributed.shutdown()
+    world = auto_world(batch_size, n_devices, device)
+    if world == 1:
+        return body()
+    argv = list(sys.argv[1:] if argv is None else argv)
+    return distributed.spawn(main, world, args=(argv,), device=device)
+
+
+def train_logger(save_dir: str):
+    """The run's train.log on rank 0 of a data-parallel run (and in a
+    single process); a silent logger on the other ranks."""
+    import logging
+
+    from idccrn_vae_torch.parallel import distributed
+    from idccrn_vae_torch.utils.logger import get_logger
+
+    if distributed.is_primary():
+        return get_logger(f"{save_dir}/train.log", 1)
+    logger = logging.getLogger("idccrn_vae_torch.rank")
+    logger.propagate = False
+    if not logger.handlers:
+        logger.addHandler(logging.NullHandler())
+    return logger
 
 
 def bucket_map_from_meta(meta_path: str, split: str = "val"):

@@ -6,8 +6,10 @@
 The port of `idccrn_vae_tpu.cli.test_enhance`, with the same flags plus
 --device (default: the CUDA card). It reads the port's checkpoint dirs
 (meta.json + best.pt). --compute int8 serves with int8 convolutions
-(`ops/conv.quantized_conv`). Not ported yet: data-parallel --n_devices
-above 1, which exits with an error.
+(`ops/conv.quantized_conv`). --n_devices n evaluates data-parallel, as
+the JAX CLI's mesh does (`cli/common.data_parallel`; default one
+process): each padded batch is split over the ranks, and rank 0 gathers
+the outputs, scores and writes (`Enhancer.enhance_batch`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from idccrn_vae_torch.cli.common import (
     add_bucket_args,
     add_device_arg,
     bucket_kwargs,
+    data_parallel,
     load_enhancement_checkpoints,
     match_clean_paths,
 )
@@ -54,7 +57,10 @@ def build_parser():
                    help="collect mu covariance + speech/noise silhouette "
                         "diagnostics (test_nsvae_se.py latent analysis)")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="data-parallel device count; only 1 is ported")
+                   help="shard eval batches over this many ranks (the "
+                        "largest count up to it that divides "
+                        "--batch_size): one per card, or Gloo processes "
+                        "with --device cpu")
     p.add_argument("--compute", type=str, default="bf16",
                    choices=["f32", "bf16", "int8"],
                    help="operand dtype of the convs, LSTM and dense "
@@ -72,11 +78,15 @@ def build_parser():
 
 
 def main(argv=None):
+    """Returns the evaluation result (`run_enhancement_eval`): in a
+    data-parallel run, rank 0's."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    if args.n_devices is not None and args.n_devices > 1:
-        raise SystemExit("data-parallel evaluation (--n_devices > 1) is not "
-                         "ported to idccrn_vae_torch yet (ROADMAP item 17)")
+    return data_parallel(main, argv, args.n_devices or 1, args.batch_size,
+                         device, lambda: _evaluate(args, device))
+
+
+def _evaluate(args, device):
     enc_cfg, dec_cfg, enc_state, dec_state, noise_dec_state, pad_mode = \
         load_enhancement_checkpoints(args.nsvae_dir, args.decoder_dir,
                                      args.noise_decoder_dir, args.phase)

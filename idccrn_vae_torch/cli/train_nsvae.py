@@ -5,8 +5,8 @@ ini (configs/nsvae_config.ini) plus --device (default: the CUDA card).
 [User] pre_clean_encoder / pre_noise_encoder name port checkpoint dirs
 (their meta.json supplies the architecture) or reference .pt files
 (then the architecture flags --skipc / --skip_padding / --fclatent say
-it). A dir without a best snapshot is refused. --n_devices above 1 exits
-with an error (not ported yet).
+it). A dir without a best snapshot is refused. --n_devices trains
+data-parallel (`cli/common.data_parallel`).
 """
 
 from __future__ import annotations
@@ -17,18 +17,20 @@ import os
 
 from idccrn_vae_torch.cli.common import (
     add_common_train_flags,
-    check_train_args,
+    data_parallel,
     config_from_meta,
     load_pretrained_variables,
     loaders_from_ini,
     model_config,
     resolve_save_dir,
+    train_logger,
 )
+from idccrn_vae_torch.device import resolve_device
 from idccrn_vae_torch.losses.nsvae_loss import NsvaeTrueKlLoss
+from idccrn_vae_torch.parallel import distributed
 from idccrn_vae_torch.train.checkpoint import CheckpointManager
 from idccrn_vae_torch.train.nsvae import NsvaeTrainer
 from idccrn_vae_torch.utils.config import load_ini
-from idccrn_vae_torch.utils.logger import get_logger
 
 
 def build_parser():
@@ -55,23 +57,34 @@ def build_parser():
 
 
 def main(argv=None):
-    """Returns (curves of the epochs run, best val loss, run dir)."""
+    """Returns (curves of the epochs run, best val loss, run dir): in a
+    data-parallel run, rank 0's."""
     args = build_parser().parse_args(argv)
-    device = check_train_args(args)
+    device = resolve_device(args.device)
     ini = load_ini(args.cfg_file)
-
     clean_dir = ini.get("User", "pre_clean_encoder")
     noise_dir = ini.get("User", "pre_noise_encoder")
-    is_file = lambda path: path.endswith((".pt", ".pth"))
     for path in (clean_dir, noise_dir):
-        if not (is_file(path)
+        if not (_is_file(path)
                 or os.path.isfile(os.path.join(path, "best.pt"))):
             raise SystemExit(
                 f"{path} has no 'best' snapshot — refusing to train "
                 "NSVAE posterior matching against randomly initialized "
                 "frozen encoders (check pre_clean_encoder / "
                 "pre_noise_encoder in the ini)")
-    if is_file(clean_dir):
+    return data_parallel(main, argv, args.n_devices,
+                         ini.getint("DataFrame", "batch_size"), device,
+                         lambda: _train(args, ini, device))
+
+
+def _is_file(path: str) -> bool:
+    return path.endswith((".pt", ".pth"))
+
+
+def _train(args, ini, device):
+    clean_dir = ini.get("User", "pre_clean_encoder")
+    noise_dir = ini.get("User", "pre_noise_encoder")
+    if _is_file(clean_dir):
         pre_cfg = model_config(args, ini)
     else:
         pre_cfg = config_from_meta(CheckpointManager(clean_dir).load_meta())
@@ -103,9 +116,10 @@ def main(argv=None):
         ini, "triplet", args.first_use_dataset)
     model_name = ini.get("User", "model_name")
     save_dir = resolve_save_dir(args, ini, model_name)
-    logger = get_logger(f"{save_dir}/train.log", 1)
-    logger.info("train %d, val %d segments -> %s on %s", n_train, n_val,
-                save_dir, device)
+    logger = train_logger(save_dir)
+    logger.info("train %d, val %d segments -> %s on %s, data-parallel "
+                "world %d", n_train, n_val, save_dir, device,
+                distributed.world())
     curves, best = trainer.fit(
         train_loader, val_loader,
         epochs=ini.getint("Training", "epochs"),

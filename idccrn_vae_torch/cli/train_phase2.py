@@ -10,8 +10,8 @@ the noisy encoder. --load_de starts the decoder from the CVAE run (or
 reference .pt file) of --pre_decoder_dir. It writes a port checkpoint
 dir (meta.json, best.pt with encoder / decoder / noise_decoder / dis,
 state.pt, loss_curves.json, train.log) that the port's
-`test_enhance --phase 2` reads. --n_devices above 1 exits with an error
-(not ported yet).
+`test_enhance --phase 2` reads. --n_devices trains data-parallel
+(`cli/common.data_parallel`).
 """
 
 from __future__ import annotations
@@ -22,18 +22,20 @@ import os
 
 from idccrn_vae_torch.cli.common import (
     add_common_train_flags,
-    check_train_args,
+    data_parallel,
     config_from_meta,
     load_pretrained_variables,
     loaders_from_ini,
     parse_weights,
     resolve_save_dir,
+    train_logger,
 )
+from idccrn_vae_torch.device import resolve_device
 from idccrn_vae_torch.losses.phase2 import TwoPhaseLoss
+from idccrn_vae_torch.parallel import distributed
 from idccrn_vae_torch.train.checkpoint import CheckpointManager
 from idccrn_vae_torch.train.phase2 import DECODE_UPDATES, Phase2Trainer
 from idccrn_vae_torch.utils.config import load_ini
-from idccrn_vae_torch.utils.logger import get_logger
 
 
 def build_parser():
@@ -57,11 +59,11 @@ def build_parser():
 
 
 def main(argv=None):
-    """Returns (curves of the epochs run, best val loss, run dir)."""
+    """Returns (curves of the epochs run, best val loss, run dir): in a
+    data-parallel run, rank 0's."""
     args = build_parser().parse_args(argv)
-    device = check_train_args(args)
+    device = resolve_device(args.device)
     ini = load_ini(args.cfg_file)
-
     if args.load_de and not args.pre_decoder_dir:
         raise SystemExit("--load_de requires --pre_decoder_dir (the "
                          "pretrained CVAE decoder to initialize from); "
@@ -76,7 +78,13 @@ def main(argv=None):
     if not os.path.exists(os.path.join(folder, "best.pt")):
         raise SystemExit(f"{folder} has no best snapshot — refusing to "
                          "fine-tune from nothing")
-    nsvae_ckpt = CheckpointManager(folder)
+    return data_parallel(main, argv, args.n_devices,
+                         ini.getint("DataFrame", "batch_size"), device,
+                         lambda: _train(args, ini, device))
+
+
+def _train(args, ini, device):
+    nsvae_ckpt = CheckpointManager(args.first_phase_folder)
     nsvae_meta = nsvae_ckpt.load_meta()
     enc_cfg = dataclasses.replace(config_from_meta(nsvae_meta,
                                                    "noisy_config"),
@@ -106,9 +114,10 @@ def main(argv=None):
         ini, "triplet", args.first_use_dataset)
     model_name = ini.get("User", "model_name")
     save_dir = resolve_save_dir(args, ini, model_name)
-    logger = get_logger(f"{save_dir}/train.log", 1)
-    logger.info("train %d, val %d segments -> %s on %s", n_train, n_val,
-                save_dir, device)
+    logger = train_logger(save_dir)
+    logger.info("train %d, val %d segments -> %s on %s, data-parallel "
+                "world %d", n_train, n_val, save_dir, device,
+                distributed.world())
     curves, best = trainer.fit(
         train_loader, val_loader,
         epochs=ini.getint("Training", "epochs"),

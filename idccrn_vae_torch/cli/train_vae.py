@@ -5,8 +5,8 @@ The port of `idccrn_vae_tpu.cli.train_vae`, with the same flags and ini
 (configs/pretrained_cvae.ini, pretrained_nvae.ini) plus --device
 (default: the CUDA card). It writes a port checkpoint dir (meta.json,
 best.pt, state.pt, loss_curves.json, train.log) that the port's
-test_prevae, train_nsvae and test_enhance read. --n_devices above 1
-exits with an error (not ported yet).
+test_prevae, train_nsvae and test_enhance read. --n_devices
+trains data-parallel (`cli/common.data_parallel`).
 """
 
 from __future__ import annotations
@@ -17,20 +17,22 @@ import numpy as np
 
 from idccrn_vae_torch.cli.common import (
     add_common_train_flags,
-    check_train_args,
+    data_parallel,
     datanorm_from_ini,
     loaders_from_ini,
     model_config,
     parse_weights,
     resolve_save_dir,
+    train_logger,
 )
+from idccrn_vae_torch.device import resolve_device
 from idccrn_vae_torch.losses.vae_loss import (
     PretrainVaeLoss,
     kl_annealing_schedule,
 )
+from idccrn_vae_torch.parallel import distributed
 from idccrn_vae_torch.train.pretrain import PretrainTrainer
 from idccrn_vae_torch.utils.config import load_ini
-from idccrn_vae_torch.utils.logger import get_logger
 
 
 def build_parser():
@@ -50,10 +52,17 @@ def build_parser():
 
 
 def main(argv=None):
-    """Returns (curves of the epochs run, best val loss, run dir)."""
+    """Returns (curves of the epochs run, best val loss, run dir): in a
+    data-parallel run, rank 0's."""
     args = build_parser().parse_args(argv)
-    device = check_train_args(args)
+    device = resolve_device(args.device)
     ini = load_ini(args.cfg_file)
+    return data_parallel(main, argv, args.n_devices,
+                         ini.getint("DataFrame", "batch_size"), device,
+                         lambda: _train(args, ini, device))
+
+
+def _train(args, ini, device):
     cfg = model_config(args, ini)
     datanorm = datanorm_from_ini(ini, args.data_norm)
 
@@ -78,9 +87,10 @@ def main(argv=None):
         ini, "single", args.first_use_dataset)
     model_name = ini.get("User", "model_name")
     save_dir = resolve_save_dir(args, ini, model_name)
-    logger = get_logger(f"{save_dir}/train.log", 1)
-    logger.info("train %d segments, val %d segments -> %s on %s",
-                n_train, n_val, save_dir, device)
+    logger = train_logger(save_dir)
+    logger.info("train %d segments, val %d segments -> %s on %s, "
+                "data-parallel world %d", n_train, n_val, save_dir, device,
+                distributed.world())
     curves, best = trainer.fit(
         train_loader, val_loader,
         epochs=ini.getint("Training", "epochs"),

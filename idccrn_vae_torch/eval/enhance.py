@@ -26,6 +26,8 @@ from idccrn_vae_torch.models.config import DccrnConfig
 from idccrn_vae_torch.models.nsvae import NsvaeEncoder, split_noisy_skips
 from idccrn_vae_torch.models.vae import VaeDecoder
 from idccrn_vae_torch.ops.stft import istft
+from idccrn_vae_torch.parallel import distributed
+from idccrn_vae_torch.parallel.mesh import padded_rows, shard_batch
 
 DEFAULT_BUCKET_FRAMES = 100
 OUTTYPES = ("clean_direct", "real_imag_mask", "complex_mask", "phase_mask")
@@ -240,10 +242,23 @@ class Enhancer:
                       ) -> torch.Tensor:
         """Enhance a padded batch (B, L) (numpy or tensor); L should be a
         bucket length. Returns a tensor on the Enhancer's device, so a
-        caller can chain batches without host copies."""
+        caller can chain batches without host copies. In a data-parallel
+        group every rank passes the same batch, enhances its rows and
+        returns the whole batch's output."""
         generator = self.new_generator() if generator is None else generator
         wav = torch.as_tensor(wavs, dtype=torch.float32, device=self.device)
-        return self.forward(wav, generator)
+        n = distributed.world()
+        if n == 1:
+            return self.forward(wav, generator)
+        # data-parallel: zero rows up to a multiple of the world (as the
+        # JAX package pads for its mesh), this rank's rows enhanced with
+        # the un-padded batch's draws, the ranks' outputs gathered
+        b = wav.shape[0]
+        wav = torch.cat([wav, wav.new_zeros((-b % n, wav.shape[1]))])
+        with padded_rows(b):
+            out = self.forward(shard_batch(wav), generator)
+        with torch.inference_mode():
+            return distributed.gather_rows(out)[:b]
 
     @torch.inference_mode()
     def encode_latents(self, wavs: Sequence[np.ndarray], batch_size: int = 8,

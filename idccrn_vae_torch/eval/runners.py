@@ -42,6 +42,7 @@ from idccrn_vae_torch.eval.metrics import (
     compute_median,
     metric_provenance,
 )
+from idccrn_vae_torch.parallel import distributed
 from idccrn_vae_torch.utils.logger import get_logger
 
 METRIC_NAMES = ("rmse", "sisdr", "pesq", "estoi")
@@ -226,16 +227,20 @@ def run_enhancement_eval(
     test_se_cvaefinetune. With `bucket_of` (utterance name -> SNR
     bucket label, e.g. from a corpus_meta.json) also writes the
     per-bucket median table. `generator` drives the latent draws
-    (`Enhancer.enhance_utterances`; seed 0 when None).
+    (`Enhancer.enhance_utterances`; seed 0 when None). In a data-parallel
+    group every rank enhances its share of each batch, and rank 0 alone
+    scores, writes and returns the result (the others return None).
     """
-    os.makedirs(out_dir, exist_ok=True)
-    logger = logger or get_logger(os.path.join(out_dir, "log.txt"), 1)
     noisy = load_testset(noisy_paths, fs)
     clean = load_testset(clean_paths, fs)
     names = utt_names(noisy_paths)
 
     enhanced = enhancer.enhance_utterances(noisy, batch_size=batch_size,
                                            generator=generator)
+    if not distributed.is_primary():
+        return None  # a data-parallel rank: rank 0 scores and writes
+    os.makedirs(out_dir, exist_ok=True)
+    logger = logger or get_logger(os.path.join(out_dir, "log.txt"), 1)
     per_utt = score_pairs(enhanced, clean, names, fs)
     logger.info("== enhanced vs clean ==")
     summary = summarize_scores(per_utt, logger)

@@ -18,6 +18,7 @@ import math
 import torch
 
 from idccrn_vae_torch.models.reparam import CGauss, project_delta
+from idccrn_vae_torch.parallel import distributed
 
 
 def standard_prior_like(g: CGauss, prior_mode: str = "ri_inde") -> CGauss:
@@ -99,18 +100,26 @@ def mutual_information(g: CGauss, z_r: torch.Tensor, z_i: torch.Tensor,
     are evaluated one at a time against all x posteriors, as the JAX
     package's lax.map does, so each temporary is O(B*S*T*H), not the
     fully broadcast O(B^2*S*T*H).
+
+    In a data-parallel group the z rows are this rank's and the
+    aggregate posterior runs over the global batch: the x posteriors are
+    gathered from every rank (differentiably) and B is the global count.
     """
     b = z_r.shape[0]
     log_q_zx = complex_gaussian_log_prob(g, z_r, z_i, eps)  # (B, S, T)
-    sigma = torch.exp(g.log_sigma)
-    dr, di, _ = _guard_delta(sigma, g.delta_r, g.delta_i, eps, 0.90)
+    gx = g
+    if distributed.active():
+        gx = CGauss(*(distributed.gather_rows(t) for t in
+                      (g.mu_r, g.mu_i, g.log_sigma, g.delta_r, g.delta_i)))
+    sigma = torch.exp(gx.log_sigma)
+    dr, di, _ = _guard_delta(sigma, gx.delta_r, gx.delta_i, eps, 0.90)
     s_, dr_, di_ = sigma[:, None], dr[:, None], di[:, None]  # (B_x,1,T,H)
     rows = []
     for k in range(b):                        # one z-batch row (S, T, H)
-        zr = z_r[k][None] - g.mu_r[:, None]   # (B_x, S, T, H)
-        zi = z_i[k][None] - g.mu_i[:, None]
+        zr = z_r[k][None] - gx.mu_r[:, None]  # (B_x, S, T, H)
+        zi = z_i[k][None] - gx.mu_i[:, None]
         rows.append(_log_density_core(s_, dr_, di_, zr, zi, eps))
     log_prob = torch.stack(rows)              # (B_z, B_x, S, T)
-    log_q_z = torch.logsumexp(log_prob, dim=1) - math.log(b)
+    log_q_z = torch.logsumexp(log_prob, dim=1) - math.log(gx.mu_r.shape[0])
     mi = (log_q_zx - log_q_z).mean(dim=1).mean(dim=0)
     return mi.mean()

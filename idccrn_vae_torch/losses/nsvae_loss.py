@@ -19,6 +19,7 @@ from idccrn_vae_torch.losses.complex_gaussian import complex_kl_divergence
 from idccrn_vae_torch.models.config import DccrnConfig
 from idccrn_vae_torch.models.nsvae import split_noisy_skips
 from idccrn_vae_torch.models.reparam import CGauss
+from idccrn_vae_torch.parallel import distributed
 
 
 class NsvaeLossOut(NamedTuple):
@@ -35,9 +36,11 @@ class NsvaeLossOut(NamedTuple):
 
 def miu_distance(g_a: CGauss, g_b: CGauss) -> torch.Tensor:
     """sqrt(sum_dim mean_{B,T} (mu_a - mu_b)^2) over (re, im) stacked
-    (nsvae_loss.py:349-360)."""
-    d_r = ((g_a.mu_r - g_b.mu_r) ** 2).mean(dim=(0, 1))
-    d_i = ((g_a.mu_i - g_b.mu_i) ** 2).mean(dim=(0, 1))
+    (nsvae_loss.py:349-360). The mean spans the global batch in a
+    data-parallel group: the square root makes it no batch mean of
+    per-row values, so local means would not average to it."""
+    d_r, d_i = distributed.batch_means(
+        [(g_a.mu_r - g_b.mu_r) ** 2, (g_a.mu_i - g_b.mu_i) ** 2], (0, 1))
     return torch.sqrt(d_r.sum() + d_i.sum())
 
 

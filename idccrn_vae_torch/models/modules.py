@@ -25,6 +25,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from idccrn_vae_torch.models.config import (
     DccrnConfig,
@@ -269,17 +270,33 @@ def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _stage_call(cfg: DccrnConfig, stage, st: nn.Module, *args):
+    """stage(st, *args), and with cfg.remat under autograd, the JAX
+    package's `jax.checkpoint` of the stage: its activations are dropped
+    after the forward and recomputed in the backward. The recompute runs
+    under `frozen_bn_stats`, so BN's running statistics and counter move
+    once per forward; a train-mode BN's output depends on the batch
+    statistics alone, not on the counter, so the recompute gives the
+    forward's output whatever the counter now reads."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return stage(st, *args)
+    return checkpoint(
+        stage, st, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), frozen_bn_stats(st)))
+
+
 def apply_encoder_stack(stages: Sequence[EncoderStage], x: torch.Tensor,
                         cfg: DccrnConfig) -> Tuple[torch.Tensor, list]:
     """x: (B, F, T, 2*Cin) -> (bottleneck, skips list).
 
     BN runs in each stage's mode: batch statistics with a running update
     in train mode, the running statistics in eval mode. int8 quantizes a
-    stage in eval mode only, as the JAX package's `not train`."""
+    stage in eval mode only, as the JAX package's `not train`. cfg.remat
+    recomputes each stage in the backward (`_stage_call`)."""
     time_pad = 1 if cfg.causal else 0
     cdt = cfg.compute_dtype
-    skips = []
-    for st in stages:
+
+    def stage(st, x):
         c = st.conv
         x = complex_conv2d(x, c.conv_re.weight, c.conv_im.weight,
                            c.conv_re.bias, c.conv_im.bias, cfg.stride,
@@ -287,7 +304,11 @@ def apply_encoder_stack(stages: Sequence[EncoderStage], x: torch.Tensor,
                            compute_dtype=cdt,
                            quant=cfg.conv_quant and not st.training,
                            quant_min_ch=cfg.quant_min_ch)
-        x = prelu(st.bn(x), st.prelu.weight)
+        return prelu(st.bn(x), st.prelu.weight)
+
+    skips = []
+    for st in stages:
+        x = _stage_call(cfg, stage, st, x)
         skips.append(x)
     return x, skips
 
@@ -347,29 +368,33 @@ def apply_decoder_stack(stages: Sequence[DecoderStage], x: torch.Tensor,
                                         compute_dtype=cdt, quant=quant,
                                         quant_min_ch=cfg.quant_min_ch)
 
-    for i, st in enumerate(stages):
+    def stage(st, x, skip, kind):
         t = st.transconv
         wr, wi = t.tconv_re.weight, t.tconv_im.weight
         br, bi = t.tconv_re.bias, t.tconv_im.bias
-        kind = _skip_kind(cfg, i, num_samples, pad_mode)
-        if kind != "none" and skip_coin is not None:
-            rep = skips[n - 1 - i].repeat_interleave(num_samples, dim=0)
-            alt = torch.zeros_like(rep) if cfg.skip_prob == 1 else x
-            cx = x.shape[-1] // 2
-            y = (tconv(x, wr[:cx], wi[:cx], br, bi)
-                 + tconv(torch.where(skip_coin, rep, alt), wr[cx:], wi[cx:]))
-        elif kind == "none":
+        if kind == "none":
             y = tconv(x, wr, wi, br, bi)
         else:
             cx = x.shape[-1] // 2
             y = tconv(x, wr[:cx], wi[:cx], br, bi)
-            skip = skips[n - 1 - i]
             if kind == "shared":
                 ys = tconv(skip, wr[cx:], wi[cx:])
                 y = y + ys.repeat_interleave(num_samples, dim=0)
             elif kind == "full":
                 y = y + tconv(skip, wr[cx:], wi[cx:])
-        x = prelu(st.bn(y), st.prelu.weight)
+            # 'zero': the skip half adds nothing
+        return prelu(st.bn(y), st.prelu.weight)
+
+    for i, st in enumerate(stages):
+        kind = _skip_kind(cfg, i, num_samples, pad_mode)
+        skip = None if kind in ("none", "zero") else skips[n - 1 - i]
+        if kind != "none" and skip_coin is not None:
+            rep = skips[n - 1 - i].repeat_interleave(num_samples, dim=0)
+            alt = torch.zeros_like(rep) if cfg.skip_prob == 1 else x
+            skip, kind = torch.where(skip_coin, rep, alt), "full"
+        # the skip is an argument of the (rematerialized) stage, as in
+        # the JAX package's jax.checkpoint(stage, static_argnums=(4,))
+        x = _stage_call(cfg, stage, st, x, skip, kind)
     return x
 
 

@@ -18,6 +18,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from idccrn_vae_torch.parallel.mesh import randn_rows
+
 _EPS = 1e-6
 
 
@@ -55,7 +57,9 @@ def reparameterize(g: CGauss, num_samples: int, guard: str = "eps",
 
     noise: optional explicit (eps_r, eps_i), each (B, S, T, H), so tests
     can drive this and the JAX function with identical draws. Without
-    it the draws come from `generator` (on the tensors' device).
+    it the draws come from `generator` (on the tensors' device); in a
+    data-parallel group they are the global batch's draws, this rank's
+    rows kept (`parallel/mesh.randn_rows`).
     """
     if guard == "clamp":
         sigma = torch.exp(torch.clamp(g.log_sigma, -13.0, 13.0))
@@ -83,8 +87,8 @@ def reparameterize(g: CGauss, num_samples: int, guard: str = "eps",
         shape = (b, num_samples, t, h)
         kw = dict(generator=generator, device=g.mu_r.device,
                   dtype=g.mu_r.dtype)
-        eps_r = torch.randn(shape, **kw)
-        eps_i = torch.randn(shape, **kw)
+        eps_r = randn_rows(shape, **kw)
+        eps_i = randn_rows(shape, **kw)
 
     z_r = g.mu_r[:, None] + scale_rr[:, None] * eps_r
     z_i = (g.mu_i[:, None] + scale_ir[:, None] * eps_r

@@ -18,6 +18,12 @@ first, then the affine of `_whiten_affine`; the output is differentiable
 through the batch statistics. It also returns the new running statistics:
 ``0.9 * old + 0.1 * batch``, except that the first batch (``count == 0``)
 replaces them wholesale, and with ``dis_mode`` every batch does.
+
+In a data-parallel group (`parallel/distributed.py`) the batch
+statistics span the global batch, as XLA's do under a mesh: the same two
+passes, each a differentiable all-reduce of per-channel sums (the mean,
+then the centred second moments), so every rank whitens with, and moves
+its running statistics to, the same global statistics.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+
+from idccrn_vae_torch.parallel import distributed
 
 _EPS = 1e-5
 
@@ -98,13 +106,13 @@ def complex_batch_norm_train(x: torch.Tensor, params: Dict[str, torch.Tensor],
     re = x[..., :c].float()
     im = x[..., c:].float()
     axes = tuple(range(x.dim() - 1))  # (B, F, T): per channel
-    mu_r = re.mean(dim=axes)
-    mu_i = im.mean(dim=axes)
+    mu_r, mu_i = distributed.batch_means([re, im], axes)
     re_c = re - mu_r
     im_c = im - mu_i
-    vrr = (re_c * re_c).mean(dim=axes) + _EPS
-    vii = (im_c * im_c).mean(dim=axes) + _EPS
-    vri = (re_c * im_c).mean(dim=axes)
+    vrr, vii, vri = distributed.batch_means([re_c * re_c, im_c * im_c, re_c * im_c],
+                                 axes)
+    vrr = vrr + _EPS
+    vii = vii + _EPS
 
     zrr, zri, zir, zii = _gamma_product(params, *_inverse_sqrt(vrr, vii, vri))
     beta = lambda k: params[k].reshape(-1).float()

@@ -4,6 +4,12 @@ Mirrors `idccrn_vae_tpu/train/loop.py` (the reference's train.py:
 254-434 skeleton): per-epoch train/val metric accumulation, the plateau
 scheduler on the val loss, the best checkpoint and early stop on
 patience.
+
+In a data-parallel group (`parallel/`) every rank runs this loop on the
+same global batches and holds its rows of each (`Trainer.
+batch_to_device`); the epoch metrics are averaged over the ranks, so
+every rank takes the same scheduler, best-epoch and early-stop decision,
+and only rank 0 writes checkpoints, meta.json and loss_curves.json.
 """
 
 from __future__ import annotations
@@ -16,6 +22,12 @@ from typing import Callable, Dict, Iterable
 import torch
 
 from idccrn_vae_torch.models.modules import bn_counts, set_bn_counts
+from idccrn_vae_torch.parallel import distributed
+from idccrn_vae_torch.parallel.mesh import (
+    average_gradients,
+    replicate,
+    shard_batch,
+)
 from idccrn_vae_torch.train.checkpoint import CheckpointManager
 from idccrn_vae_torch.utils.logger import get_logger
 
@@ -36,8 +48,16 @@ class MetricAccumulator:
             self.counts[k] = self.counts.get(k, 0) + batch_size
         self.count += batch_size
 
-    def averages(self) -> Dict[str, float]:
-        return {k: v / self.counts[k] for k, v in self.sums.items()}
+    def averages(self, device=None) -> Dict[str, float]:
+        """In a data-parallel group, the averages over every rank's
+        sums (each rank's metric is the mean over its equal shard, so
+        this is the single-process average)."""
+        keys = sorted(self.sums)
+        totals = distributed.all_reduce_floats(
+            [self.sums[k] for k in keys] + [self.counts[k] for k in keys],
+            device)
+        n = len(keys)
+        return {k: totals[i] / totals[n + i] for i, k in enumerate(keys)}
 
 
 def epoch_generator(seed: int, epoch: int, train: bool,
@@ -78,13 +98,13 @@ def run_training(*, epochs: int, start_epoch: int, train_loader: Iterable,
         gen = epoch_generator(seed, epoch, True, device)
         for batch in train_loader:
             acc.add(train_step(batch, gen, epoch), _batch_size(batch))
-        train_avg = acc.averages()
+        train_avg = acc.averages(device)
 
         vacc = MetricAccumulator()
         gen = epoch_generator(seed, epoch, False, device)
         for batch in val_loader:
             vacc.add(eval_step(batch, gen, epoch), _batch_size(batch))
-        val_avg = vacc.averages()
+        val_avg = vacc.averages(device)
         val_total = val_avg.get(loss_key, float("nan"))
 
         curves["train"].append(train_avg)
@@ -129,6 +149,11 @@ class Trainer:
     schedulers, the best snapshot and early stop, and override
     `resume_meta`, which reads what it wrote into meta.json back on
     resume.
+
+    Data parallelism: in a process group, `batch_to_device` keeps this
+    rank's rows of the global batch, a train step calls
+    `reduce_gradients` on each optimizer after its backward, `fit` starts
+    every rank from rank 0's state, and only rank 0 writes the run dir.
     """
 
     loss_key = "total"
@@ -156,9 +181,18 @@ class Trainer:
         return {k: self.models[k].state_dict() for k in self.best_models}
 
     def batch_to_device(self, batch):
+        """This rank's rows of a host batch, as float32 on the device."""
         move = lambda x: torch.as_tensor(x).to(self.device, torch.float32)
+        batch = shard_batch(batch)
         return tuple(map(move, batch)) if isinstance(batch, tuple) \
             else move(batch)
+
+    @staticmethod
+    def reduce_gradients(optimizer: torch.optim.Optimizer) -> None:
+        """Average the gradients of `optimizer`'s parameters over the
+        ranks (nothing without a process group)."""
+        average_gradients(p for group in optimizer.param_groups
+                          for p in group["params"])
 
     def fit(self, train_loader, val_loader, epochs: int, save_dir: str,
             early_stop_patience: int, save_frequency: int, model_name: str,
@@ -180,15 +214,20 @@ class Trainer:
                 sched.load_state_dict(meta[key])
             self.resume_meta(meta)
             logger.info("resumed from epoch %d", start_epoch)
+        replicate(self.models.values())
+        primary = distributed.is_primary()
 
         def schedulers_step(val_total):
             for sched, opt in self.schedulers.values():
                 sched.step(val_total, self.optimizers[opt])
 
         def on_best(epoch):
-            ckpt.save_best(self.best_snapshot())
+            if primary:
+                ckpt.save_best(self.best_snapshot())
 
         def on_checkpoint(epoch, best, pat, curves):
+            if not primary:
+                return
             ckpt.save_state(self.state_dict())
             ckpt.save_meta({
                 "model_name": model_name, **self.meta_fields(),
@@ -208,13 +247,3 @@ class Trainer:
             early_stop_patience=early_stop_patience, best_val=best_val,
             patience=patience, save_frequency=save_frequency,
             loss_key=self.loss_key)
-
-
-def refuse_remat(cfg, who: str) -> None:
-    """cfg.remat is not ported: the JAX package recomputes each stage in
-    its backward (jax.checkpoint), and torch.utils.checkpoint's recompute
-    would apply BN's running update a second time."""
-    if cfg.remat:
-        raise NotImplementedError(
-            f"{who}: cfg.remat is not ported to idccrn_vae_torch (ROADMAP "
-            "queue 1, item 16c); train with remat=False")

@@ -27,12 +27,15 @@ from idccrn_vae_torch.models.config import DccrnConfig
 from idccrn_vae_torch.models.modules import set_bn_counts
 from idccrn_vae_torch.models.nsvae import NsvaeEncoder
 from idccrn_vae_torch.models.vae import VaeEncoder
-from idccrn_vae_torch.train.loop import Trainer, refuse_remat
+from idccrn_vae_torch.train.loop import Trainer
 from idccrn_vae_torch.train.optim import PlateauScheduler, make_adam
 
 
 class NsvaeTrainer(Trainer):
-    """Runs on the CUDA card unless `device` names another device."""
+    """Runs on the CUDA card unless `device` names another device. In a
+    data-parallel group the trainable parameters' gradients (one Adam's)
+    are averaged over the ranks in one flattened all-reduce after the
+    backward; a frozen encoder has none and sends nothing."""
 
     def __init__(self, pre_cfg: DccrnConfig, noisy_cfg: DccrnConfig,
                  loss: NsvaeTrueKlLoss, learning_rate: float,
@@ -42,8 +45,6 @@ class NsvaeTrainer(Trainer):
         self.device = resolve_device(device)
         pre_cfg.reject_int8_training("NsvaeTrainer")
         noisy_cfg.reject_int8_training("NsvaeTrainer")
-        refuse_remat(pre_cfg, "NsvaeTrainer")
-        refuse_remat(noisy_cfg, "NsvaeTrainer")
         self.pre_cfg = pre_cfg
         self.noisy_cfg = noisy_cfg
         self.loss = loss
@@ -123,6 +124,7 @@ class NsvaeTrainer(Trainer):
         total, metrics = self._losses(batch, generator, True)
         self.opt.zero_grad(set_to_none=True)
         total.backward()
+        self.reduce_gradients(self.opt)
         self.opt.step()
         return metrics
 

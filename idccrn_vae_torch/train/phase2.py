@@ -33,7 +33,8 @@ How one step keeps the JAX step's state updates:
     so D's counter moves by one per update.
   * The generator's pass through D discards D's statistics (JAX's
     ``score, _ = ...``): it runs under `frozen_bn_stats`, with D's
-    parameters not requiring grad, so D's Adam sees only D's own loss.
+    parameters not requiring grad through the generator's backward, so
+    D's Adam sees only D's own loss.
   * `batch_counter` (the d_step phase) goes into meta.json and comes back
     on resume, so a resumed run interleaves D updates as an uninterrupted
     one does.
@@ -54,7 +55,7 @@ from idccrn_vae_torch.models.modules import frozen_bn_stats, set_bn_counts
 from idccrn_vae_torch.models.nsvae import NsvaeEncoder, split_noisy_skips
 from idccrn_vae_torch.models.vae import VaeDecoder
 from idccrn_vae_torch.ops.stft import stft
-from idccrn_vae_torch.train.loop import Trainer, refuse_remat
+from idccrn_vae_torch.train.loop import Trainer
 from idccrn_vae_torch.train.optim import PlateauScheduler, make_adam
 from idccrn_vae_torch.train.pretrain import tile_samples
 
@@ -75,7 +76,11 @@ def trained_parameters(decoder: VaeDecoder, decode_update: str):
 
 class Phase2Trainer(Trainer):
     """Classical decoder fine-tune; adversarial=True for LSGAN. Runs on
-    the CUDA card unless `device` names another device."""
+    the CUDA card unless `device` names another device. In a
+    data-parallel group the decoders' trained parameters and D's are
+    averaged over the ranks after their backwards, one flattened
+    all-reduce per optimizer; D's batch statistics span the global
+    batch, so the D step sees the generator's global outputs."""
 
     def __init__(self, enc_cfg: DccrnConfig, dec_cfg: DccrnConfig,
                  loss: TwoPhaseLoss, learning_rate: float,
@@ -86,8 +91,6 @@ class Phase2Trainer(Trainer):
         self.device = resolve_device(device)
         enc_cfg.reject_int8_training("Phase2Trainer")
         dec_cfg.reject_int8_training("Phase2Trainer")
-        refuse_remat(enc_cfg, "Phase2Trainer")
-        refuse_remat(dec_cfg, "Phase2Trainer")
         if decode_update not in DECODE_UPDATES:
             raise ValueError(f"decode_update {decode_update!r} is not one "
                              f"of {DECODE_UPDATES}")
@@ -224,10 +227,8 @@ class Phase2Trainer(Trainer):
                         train: bool):
         if self.adversarial:
             self.dis.train(train)
-            self.dis.requires_grad_(False)
             with frozen_bn_stats(self.dis):
                 score = self.dis(recon_c)
-            self.dis.requires_grad_(True)
             total, l_recon, l_dis = self.adv_loss.generator_loss(
                 clean_t, recon_c, score)
             return total, {"total": total, "recon_sisnr": l_recon,
@@ -249,6 +250,7 @@ class Phase2Trainer(Trainer):
         d_loss = self.adv_loss.discriminator_loss(s_true, s_est)
         self.opt_dis.zero_grad(set_to_none=True)
         d_loss.backward()
+        self.reduce_gradients(self.opt_dis)
         self.opt_dis.step()
         return d_loss.detach()
 
@@ -266,10 +268,20 @@ class Phase2Trainer(Trainer):
             batch, generator, True, noise, noise_n)
         d_loss = (self._d_update(clean_t.detach(), recon_c.detach())
                   if update_d else None)
-        total, metrics = self._generator_loss(recon_c, pred_c, clean_t,
-                                              clean_spec, extras, True)
-        self.opt.zero_grad(set_to_none=True)
-        total.backward()
+        # D's parameters need no gradient from the generator's loss; they
+        # stay frozen through its backward, whose recompute (cfg.remat)
+        # must save what the forward saved
+        if self.adversarial:
+            self.dis.requires_grad_(False)
+        try:
+            total, metrics = self._generator_loss(
+                recon_c, pred_c, clean_t, clean_spec, extras, True)
+            self.opt.zero_grad(set_to_none=True)
+            total.backward()
+        finally:
+            if self.adversarial:
+                self.dis.requires_grad_(True)
+        self.reduce_gradients(self.opt)
         self.opt.step()
         metrics = {k: v.detach() for k, v in metrics.items()}
         if d_loss is not None:

@@ -19,7 +19,7 @@ from idccrn_vae_torch.losses.vae_loss import PretrainVaeLoss
 from idccrn_vae_torch.models.config import DccrnConfig
 from idccrn_vae_torch.models.vae import VaeDecoder, VaeEncoder
 from idccrn_vae_torch.train.checkpoint import datanorm_to_meta
-from idccrn_vae_torch.train.loop import Trainer, refuse_remat
+from idccrn_vae_torch.train.loop import Trainer
 from idccrn_vae_torch.train.optim import PlateauScheduler, make_adam
 
 
@@ -35,7 +35,9 @@ class PretrainTrainer(Trainer):
     Runs on the CUDA card unless `device` names another device; the
     weights are drawn from CPU generators seeded with `seed` and
     `seed + 1`, the per-epoch noise from generators on `device`
-    (`train/loop.epoch_generator`).
+    (`train/loop.epoch_generator`). In a data-parallel group the two
+    models' gradients are averaged over the ranks after the backward,
+    one flattened all-reduce per optimizer (`Trainer.reduce_gradients`).
     """
 
     def __init__(self, cfg: DccrnConfig, loss: PretrainVaeLoss,
@@ -44,7 +46,6 @@ class PretrainTrainer(Trainer):
                  seed: int = 123, device: DeviceLike = None):
         self.device = resolve_device(device)
         cfg.reject_int8_training("PretrainTrainer")
-        refuse_remat(cfg, "PretrainTrainer")
         self.cfg = cfg
         self.loss = loss
         self.datanorm = datanorm  # kept host-side for meta.json
@@ -114,6 +115,8 @@ class PretrainTrainer(Trainer):
         self.opt_en.zero_grad(set_to_none=True)
         self.opt_de.zero_grad(set_to_none=True)
         total.backward()
+        self.reduce_gradients(self.opt_en)
+        self.reduce_gradients(self.opt_de)
         self.opt_en.step()
         self.opt_de.step()
         return metrics

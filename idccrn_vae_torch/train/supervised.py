@@ -21,13 +21,16 @@ from idccrn_vae_torch.losses.phase2 import EteTrainSeLoss
 from idccrn_vae_torch.models.config import DccrnConfig
 from idccrn_vae_torch.models.dccrn import SupervisedDccrn
 from idccrn_vae_torch.train.checkpoint import datanorm_to_meta
-from idccrn_vae_torch.train.loop import Trainer, refuse_remat
+from idccrn_vae_torch.train.loop import Trainer
 from idccrn_vae_torch.train.optim import PlateauScheduler, make_adam
 
 
 class SupervisedTrainer(Trainer):
     """Runs on the CUDA card unless `device` names another device; the
-    weights are drawn from a CPU generator seeded with `seed`."""
+    weights are drawn from a CPU generator seeded with `seed`.
+
+    In a data-parallel group a train step averages the gradients with
+    one flattened all-reduce after the backward (`reduce_gradients`)."""
 
     def __init__(self, cfg: DccrnConfig, loss: EteTrainSeLoss,
                  learning_rate: float, weight_decay: float = 1e-3,
@@ -35,7 +38,6 @@ class SupervisedTrainer(Trainer):
                  seed: int = 123, device: DeviceLike = None):
         self.device = resolve_device(device)
         cfg.reject_int8_training("SupervisedTrainer")
-        refuse_remat(cfg, "SupervisedTrainer")
         self.cfg = cfg
         self.loss = loss
         self.datanorm = datanorm  # kept host-side for meta.json
@@ -90,6 +92,7 @@ class SupervisedTrainer(Trainer):
         total, metrics = self._losses(batch, True)
         self.opt.zero_grad(set_to_none=True)
         total.backward()
+        self.reduce_gradients(self.opt)
         self.opt.step()
         return metrics
 

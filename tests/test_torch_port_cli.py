@@ -184,18 +184,27 @@ def test_test_enhance_matches_jax(tmp_path, monkeypatch, data, case):
     _compare_eval_dirs(out[1], out[0], data["names"], "enhanced")
 
 
-def test_test_enhance_rejects_unported_modes(tmp_path, data):
+def test_test_enhance_rejects_unported_modes(tmp_path, monkeypatch, data):
+    """A missing decoder dir is refused before the output dir is made.
+    Data-parallel evaluation (--n_devices 2) without a card and without
+    --device cpu raises before any data is read; with --device cpu it
+    runs on two Gloo ranks (its outputs are held against the
+    single-process run and JAX's mesh in
+    tests/test_torch_port_parallel_cli.py)."""
     from idccrn_vae_torch.cli.test_enhance import main as t_main
 
     nsvae, cvae, _ = _phase1_dirs(tmp_path, False)
     base = ["--nsvae_dir", nsvae[1], "--decoder_dir", cvae[1], "--noisy_dir",
             data["noisy"], "--clean_dir", data["clean"], "--out_dir",
             str(tmp_path / "o"), "--device", "cpu"]
-    with pytest.raises(SystemExit, match="item 17"):
-        t_main(base + ["--n_devices", "2"])
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        t_main(base[:-2] + ["--n_devices", "2"])
     with pytest.raises(SystemExit, match="decoder_dir"):
         t_main(base[:2] + base[4:])
     assert not (tmp_path / "o").exists()
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    res = t_main(base + ["--n_devices", "2", "--num_samples", "2"])
+    assert sorted(res["per_utterance"]) == data["names"]
     # --compute int8 serves now; at these widths no stage reaches
     # quant_min_ch 16 (tests/test_torch_port_int8.py holds the
     # quantized stages against JAX)

@@ -247,6 +247,13 @@ def test_phase2_trainer_refuses_bad_arguments():
     with pytest.raises(ValueError, match="decode_update"):
         Phase2Trainer(tc, tc, loss, 1e-3, decode_update="dense",
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
-        Phase2Trainer(tc, dataclasses.replace(tc, remat=True), loss, 1e-3,
-                      device="cpu")
+    # remat trains (tests/test_torch_port_remat.py holds its steps)
+    remat = Phase2Trainer(tc, dataclasses.replace(tc, remat=True),
+                          tloss.TwoPhaseLoss((1.0, 1.0, 0.0), 1.0, 1), 1e-3,
+                          device="cpu")
+    batch = tuple(np.full((2, 800), v, np.float32) * np.sin(
+        np.arange(800, dtype=np.float32) * (k + 1) / 7)
+        for k, v in enumerate((0.3, 0.2, 0.1)))
+    metrics = remat.train_step(batch, torch.Generator().manual_seed(0), 0)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert bn_counts(remat.decoder).tolist() == [1] * 6

@@ -293,11 +293,14 @@ def test_reload_resumes_the_adversarial_run(runs, tmp_path):
     assert not os.path.exists(str(tmp_path / "port_adversarial_runs"))
 
 
-def test_train_phase2_refusals(runs, tmp_path):
+def test_train_phase2_refusals(runs, tmp_path, monkeypatch):
     """Refused before any run dir is made: --load_de without
     --pre_decoder_dir, a --first_phase_folder without meta.json (no dir
-    is made there either) or without a best snapshot; and --n_devices
-    above 1 in both training CLIs."""
+    is made there either) or without a best snapshot, also with
+    --n_devices 2 (ahead of starting any rank). --n_devices 2 without a
+    card and without --device cpu raises before any data is read in both
+    training CLIs; with --device cpu, train_supervised trains on two Gloo
+    ranks."""
     from idccrn_vae_torch.cli.train_phase2 import main
     from idccrn_vae_torch.cli.train_supervised import main as sup_main
 
@@ -315,7 +318,18 @@ def test_train_phase2_refusals(runs, tmp_path):
     with pytest.raises(SystemExit, match="no best snapshot"):
         main([*argv, "--first_phase_folder", no_best])
     assert not os.path.exists(str(tmp_path / "port_classical_runs"))
-    with pytest.raises(SystemExit, match="item 17"):
+    with pytest.raises(SystemExit, match="no best snapshot"):
         main([*argv, "--first_phase_folder", no_best, "--n_devices", "2"])
-    with pytest.raises(SystemExit, match="item 17"):
-        sup_main(["--cfg_file", ini, *CPU, "--n_devices", "2"])
+    no_card = ["--cfg_file", ini, *PHASE2_FLAGS, "--n_devices", "2"]
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        main([*no_card, "--first_phase_folder", runs["nsvae"]])
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        sup_main(["--cfg_file", ini, "--n_devices", "2"])
+    assert not os.path.exists(str(tmp_path / "port_classical_runs"))
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    flags = [f for f in SUPERVISED_FLAGS if f != "--data_norm"]
+    curves, _, run = sup_main(["--cfg_file", ini, *flags, *CPU,
+                               "--n_devices", "2"])
+    finite_curves(curves, 2)
+    with open(os.path.join(run, "train.log")) as f:
+        assert f.read().count("data-parallel world 2") == 1

@@ -187,12 +187,31 @@ def test_train_nsvae_refuses_a_dir_without_best(runs, tmp_path):
     assert not os.path.exists(os.path.join(str(tmp_path), "port_nsvae_runs"))
 
 
-def test_train_cli_refuses_data_parallel(runs, tmp_path):
+def test_train_cli_refuses_data_parallel(runs, tmp_path, monkeypatch):
+    """--n_devices 2 without a card and without --device cpu raises
+    before any data is read (here before the ini, which does not exist);
+    with --device cpu, train_vae trains on two Gloo ranks, and rank 0
+    alone writes the run dir (its trajectory is held against JAX's mesh
+    in tests/test_torch_port_parallel_cli.py)."""
     from idccrn_vae_torch.cli.train_vae import main
 
-    with pytest.raises(SystemExit, match="item 17"):
-        main(["--cfg_file", str(tmp_path / "missing.ini"), "--device", "cpu",
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        main(["--cfg_file", str(tmp_path / "missing.ini"),
               "--n_devices", "2"])
+    saved = str(tmp_path / "runs")
+    ini = _ini(str(tmp_path / "dp.ini"), saved, "clean_vae",
+               {"train_data_dir": runs["dirs"]["clean_train"],
+                "val_data_dir": runs["dirs"]["clean_val"]})
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    curves, best, run_dir = main(["--cfg_file", ini, *FLAGS, "--device",
+                                  "cpu", "--n_devices", "2"])
+    assert run_dir == _run_dir(saved)
+    _finite_curves(curves, 2)
+    assert sorted(os.listdir(run_dir)) == RUN_FILES
+    with open(os.path.join(run_dir, "train.log")) as f:
+        log = f.read()
+    assert log.count("data-parallel world 2") == 1, log
+    assert _meta(run_dir)["best_val"] == best
 
 
 def test_host_modules_match_jax(runs, tmp_path):

@@ -322,16 +322,23 @@ def test_plateau_scheduler_matches_jax():
 
 
 def test_trainers_refuse_remat_and_int8():
+    """remat trains (each stage recomputed in the backward; the steps
+    are held against remat off and JAX in tests/test_torch_port_remat.py):
+    both trainers build and step with it. int8 serves but does not
+    train: JAX's ValueError, with or without remat
+    (tests/test_torch_port_int8.py covers all five trainers)."""
     _, tc = configs(remat=True)
     loss = PretrainVaeLoss(np.zeros(0, np.float32), 1.0, num_samples=1)
-    with pytest.raises(NotImplementedError, match="remat"):
-        PretrainTrainer(tc, loss, 1e-3, device="cpu")
-    _, noisy = configs(latent_num=2)
-    with pytest.raises(NotImplementedError, match="remat"):
-        NsvaeTrainer(tc, noisy, NsvaeTrueKlLoss(1, 0, 1, 0, noisy), 1e-3,
-                     device="cpu")
-    # int8 serves but does not train: JAX's ValueError, ahead of remat
-    # (tests/test_torch_port_int8.py covers all five trainers)
+    pre = PretrainTrainer(tc, loss, 1e-3, device="cpu")
+    _, noisy = configs(latent_num=2, remat=True)
+    ns = NsvaeTrainer(tc, noisy, NsvaeTrueKlLoss(1, 0, 1, 0, noisy), 1e-3,
+                      device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    for metrics in (pre.train_step(_wav(30), gen, 0),
+                    ns.train_step((_wav(31), _wav(32), _wav(33)), gen, 0)):
+        assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert bn_counts(pre.encoder).tolist() == [1] * 6
+    assert bn_counts(ns.models["noisy_enc"]).tolist() == [1] * 6
     _, int8 = configs(compute="int8", remat=True)
     with pytest.raises(ValueError, match="serving-only"):
         PretrainTrainer(int8, loss, 1e-3, device="cpu")

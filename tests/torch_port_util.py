@@ -579,3 +579,151 @@ def assert_wavs_within_lsb(dir_got: str, dir_want: str, names) -> None:
         want, fs_w = read_wav(os.path.join(dir_want, name))
         assert fs_g == fs_w == FS and got.shape == want.shape, name
         assert np.abs(got - want).max() <= PCM16_LSB, name
+
+
+# ------------------------------------- one step of each of the trainers
+
+
+class Recorder:
+    """Wraps `randn_rows` and keeps what it drew, paired as the
+    (eps_r, eps_i) of each reparameterization."""
+
+    def __init__(self, fn):
+        self.fn, self.draws = fn, []
+
+    def __call__(self, *args, **kwargs):
+        out = self.fn(*args, **kwargs)
+        self.draws.append(out.clone())
+        return out
+
+    def pairs(self):
+        return list(zip(self.draws[0::2], self.draws[1::2]))
+
+
+def patch_jax_draws(monkeypatch, pairs):
+    """The JAX encoders' draws: the recorded pairs of each shape in
+    order, the last one repeating (phase 2's JAX step encodes twice on a
+    D-update batch, the port once)."""
+    from idccrn_vae_tpu.models.reparam import reparameterize
+
+    by_shape = {}
+    for er, ei in pairs:
+        by_shape.setdefault(tuple(er.shape), []).append(
+            (jnp.asarray(er.numpy()), jnp.asarray(ei.numpy())))
+
+    def fixed(rng, g, num_samples, guard="eps", noise=None):
+        queue = by_shape[(*g.mu_r.shape[:1], num_samples,
+                          *g.mu_r.shape[1:])]
+        pair = queue.pop(0) if len(queue) > 1 else queue[0]
+        return reparameterize(rng, g, num_samples, guard=guard, noise=pair)
+
+    for module in ("vae", "nsvae"):
+        monkeypatch.setattr(f"idccrn_vae_tpu.models.{module}.reparameterize",
+                            fixed)
+
+
+def _recipe(kind, ttr, args, kwargs, sgd, batch):
+    import torch_port_ranks as ranks
+
+    return dict(kind=kind, args=args, kwargs=kwargs, sgd=sgd, batch=batch,
+                models=ranks.model_state(ttr), epoch=1, seed=7)
+
+
+def step_cases(monkeypatch, b, **cfg_kw):
+    """One SGD step of each of the four trainers, from the JAX trainers'
+    initial weights, at a batch of `b`, with `cfg_kw` in every config:
+    pretraining with the MI term (real skips), the NSVAE with its partial
+    freeze, adversarial phase 2 at d_step 2 (its first step updates D),
+    and the supervised DCCRN. Returns a list of (recipe for
+    `torch_port_ranks`, JAX trainer, JAX state, model name -> its path in
+    the JAX state). The port's encoders draw from their generators."""
+    from idccrn_vae_torch.models import reparam
+
+    out = []
+    jtr, state, ttr = pretrain_pair(monkeypatch, skip_mode="real", **cfg_kw)
+    out.append((_recipe("pretrain", ttr, (ttr.cfg, ttr.loss, TRAIN_LR), {},
+                      {"opt_en": TRAIN_LR, "opt_de": TRAIN_LR},
+                      train_wav(1, b)),
+                jtr, state, {"enc": ("enc",), "dec": ("dec",)}))
+    jtr, state, ttr = nsvae_pair({"clean_enc": True}, **cfg_kw)
+    out.append((_recipe("nsvae", ttr,
+                      (ttr.pre_cfg, ttr.noisy_cfg, ttr.loss, TRAIN_LR),
+                      {"trainable": ttr.trainable}, {"opt": TRAIN_LR},
+                      tuple(train_wav(s, b) for s in (2, 3, 4))),
+                jtr, state, {n: ("models", n) for n in ttr.models}))
+    jtr, state, ttr = phase2_pair(monkeypatch, adversarial=True, d_step=2,
+                                  enc_kw=cfg_kw, dec_kw=cfg_kw)
+    out.append((_recipe("phase2", ttr,
+                      (ttr.enc_cfg, ttr.dec_cfg, ttr.loss, PHASE2_LR),
+                      dict(adversarial=True, dis_lr=2 * PHASE2_LR, d_step=2),
+                      {"opt": PHASE2_LR, "opt_dis": 2 * PHASE2_LR},
+                      tuple(phase2_wav(s, b) for s in (5, 6, 7))),
+                jtr, state, {n: ("models", n) for n in ttr.models}))
+    jtr, state, ttr = supervised_pair(False, **cfg_kw)
+    out.append((_recipe("supervised", ttr, (ttr.cfg, ttr.loss, TRAIN_LR), {},
+                      {"opt": TRAIN_LR},
+                      tuple(train_wav(s, b) for s in (8, 9))),
+                jtr, state, {"model": ("model",)}))
+    # the pair helpers route the port's draws through fixed streams: the
+    # steps here draw from their generators
+    for module in ("vae", "nsvae"):
+        monkeypatch.setattr(f"idccrn_vae_torch.models.{module}."
+                            "reparameterize", reparam.reparameterize)
+    return out
+
+
+def state_at(state, path):
+    for key in path:
+        state = state[key]
+    return state
+
+
+def port_step(monkeypatch, recipe):
+    """The recipe's step in this process (no process group) -> (metrics,
+    model state, the (eps_r, eps_i) pairs its encoders drew)."""
+    import torch_port_ranks as ranks
+    from idccrn_vae_torch.models import reparam
+
+    rec = Recorder(reparam.randn_rows)
+    monkeypatch.setattr(reparam, "randn_rows", rec)
+    try:
+        metrics, state = ranks.run_step(recipe)
+    finally:
+        monkeypatch.setattr(reparam, "randn_rows", rec.fn)
+    return metrics, state, rec.pairs()
+
+
+def jax_step(monkeypatch, jtr, state, recipe, pairs, mesh=None):
+    """The JAX trainer's step on the recipe's batch and epoch, its
+    encoders handed `pairs`; on `mesh` when given (the trainer's own mesh
+    is restored after). Returns (new state, metrics)."""
+    from idccrn_vae_tpu.parallel.mesh import replicate
+
+    saved = jtr.mesh
+    if mesh is not None:
+        jtr.mesh, state = mesh, replicate(mesh, state)
+    try:
+        patch_jax_draws(monkeypatch, pairs)
+        return jtr.train_step(state, recipe["batch"], jax.random.PRNGKey(0),
+                              recipe["epoch"])
+    finally:
+        jtr.mesh = saved
+
+
+def check_step_against_jax(recipe, metrics, state, jax_metrics, jax_state,
+                           paths):
+    """A port step's metrics (F32_TOL) and every model's updates,
+    statistics and counters (`check_models`) against the JAX step's."""
+    import torch_port_ranks as ranks
+    from idccrn_vae_torch.models.modules import set_bn_counts
+
+    check_metrics(metrics, jax_metrics)
+    trainer = ranks.build(recipe)
+    for name, path in paths.items():
+        module = trainer.models[name]
+        module.load_state_dict(state[name][0])
+        set_bn_counts(module, state[name][1])
+        check_models(module, recipe["models"][name][0],
+                     state_at(jax_state, path), f"{recipe['kind']} {name}",
+                     prefix="std_DCCRN" if recipe["kind"] == "supervised"
+                     else "")
