@@ -3,7 +3,7 @@ CUDA card and check them.
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
-    python3 chip_smoke.py [--trace-dir DIR] [--only serving|eval|train]
+    python3 chip_smoke.py [--trace-dir DIR] [--only serving|eval|train|tools]
 
 It exercises `idccrn_vae_torch` through its entry points at the full
 reference width (channels 1-32-64-128-128-256-256, zdim 128, causal,
@@ -141,7 +141,26 @@ Training, at the configs' inis (3 s segments of 481 frames):
                    against train_cli's plain run; train_vae --n_devices 2
                    without a group, which resolves to world 1 here
 
-`--only serving|eval|train` runs one group of phases (eval brings
+The measurement tools (`idccrn_vae_torch/tools/`), each at the full
+reference width with the shortened counts TOOL_ARGS gives (the reports
+record them):
+
+  tools_bench      bench's clean_direct program at f32 (TF32 off) with
+                   the f32 phase's weights and latent draws, against that
+                   phase's Enhancer output to 1e-4 of max |out|; then
+                   tools.bench (clean_direct bf16 and int8, the dual
+                   program bf16, B = 32 and 128)
+  tools_train      tools.train_bench: all 13 configurations 'ok'
+  tools_stream     tools.stream_bench: the five chunk configurations and
+                   the LSTM probe
+  tools_decoder    tools.profile_decoder: the sub-pixel check of every
+                   stage passed, the useful MFU in (0, 1]
+  tools_profile    tools.profile_train: every program's MFU in (0, 1],
+                   the decoder's counted FLOPs against the analytic count
+  tools_phases     their total time
+Every number of every report finite; every busy share in (0, 1].
+
+`--only serving|eval|train|tools` runs one group of phases (eval brings
 serving along: the CLIs read its weights).
 
 The port has no hand-written kernel yet: every op of these paths is a
@@ -2489,12 +2508,116 @@ def phase_remat(device: str, smi: str) -> None:
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------ measurement tools
+
+# the tools' shortened counts here; their defaults are the JAX tools'
+TOOL_ARGS = {"bench": ["--iters", "3"],
+             "train_bench": ["--steps", "1"],
+             "stream_bench": ["--iters", "10"],
+             "profile_decoder": ["--iters", "3"],
+             "profile_train": ["--steps", "1"]}
+
+
+def _shares(report, path: str = ""):
+    """(path, value) of every busy share and MFU in a report."""
+    if isinstance(report, dict):
+        for k, v in report.items():
+            if k in ("busy_share", "mfu") or k.startswith("mfu_"):
+                yield f"{path}/{k}", v
+            else:
+                yield from _shares(v, f"{path}/{k}")
+    elif isinstance(report, list):
+        for i, v in enumerate(report):
+            yield from _shares(v, f"{path}/{i}")
+
+
+def _run_tool(name: str, out_dir: str, device, extra=()) -> dict:
+    """One tool's main() with TOOL_ARGS on `device`; its report, every
+    number finite and every share of the card in (0, 1]."""
+    import importlib
+
+    from idccrn_vae_torch.tools.common import finite
+
+    tool = importlib.import_module(f"idccrn_vae_torch.tools.{name}")
+    out = os.path.join(out_dir, f"{name}.json")
+    t0 = time.perf_counter()
+    report = tool.main(["--device", str(device), "--out", out,
+                        *TOOL_ARGS[name], *extra])
+    wall = time.perf_counter() - t0
+    with open(out) as f:
+        written = json.load(f)
+    finite(written)
+    shares = list(_shares(written))
+    bad = [(p, v) for p, v in shares if v is not None and not 0 < v <= 1.0]
+    _check(not bad, f"{name}: shares outside (0, 1]: {bad[:3]}")
+    _line(f"tools_{name}", wall_s=f"{wall:.1f}", shares=len(shares),
+          args=" ".join(TOOL_ARGS[name] + list(extra)))
+    return report
+
+
+def phase_tools(device, smi: str, weights, wav, noise, ref) -> None:
+    """The five tools on the card; bench's clean_direct program at f32
+    against the f32 phase's Enhancer output (`ref`, same weights and
+    latent draws, TF32 off)."""
+    import tempfile
+
+    from idccrn_vae_torch.tools import bench
+
+    cfg = _config("f32")
+    with _NoTf32():
+        got = bench.clean_direct(cfg, *weights, torch.device(device))(
+            wav.to(device), noise=noise)
+        torch.cuda.synchronize()
+    _check_close("tools_bench_f32", got, ref, F32_REL,
+                 vs="Enhancer clean_direct (the f32 phase)", tf32="off")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as root:
+        rep = _run_tool("bench", root, device)
+        for run in rep["runs"]:
+            for b in run["batches"]:
+                _line("tools_bench", program=run["program"],
+                      compute=run["compute"], batch=b["batch"],
+                      rtfx=f"{b['rtfx']:.1f}",
+                      ms_per_batch=f"{b['ms_per_batch']:.2f}",
+                      busy_share=(b["profile"] or {}).get("busy_share"),
+                      peak_gib=b["peak_gib"], card=json.dumps(smi))
+        torch.cuda.empty_cache()
+        rep = _run_tool("train_bench", root, device)
+        for r in rep["results"]:
+            _check(r["status"] == "ok", f"train_bench {r} is not ok")
+            _line("tools_train", trainer=r["trainer"], batch=r["batch"],
+                  compute=r["compute"], remat=r.get("remat", False),
+                  step_ms=f"{r['step_ms']:.1f}", peak_gib=r["peak_gib"])
+        torch.cuda.empty_cache()
+        rep = _run_tool("stream_bench", root, device)
+        for r in rep["configs"]:
+            _line("tools_stream", batch=r["batch"],
+                  chunk_frames=r["chunk_frames"], compute=r["compute"],
+                  per_chunk_ms=f"{r['per_chunk_ms']:.3f}",
+                  busy_share=(r["profile"] or {}).get("busy_share"))
+        _line("tools_stream", lstm_probe_us=json.dumps(
+            rep["lstm_probe_us"]))
+        rep = _run_tool("profile_decoder", root, device)
+        for r in rep["results"]:
+            _check(r["subpixel_max_abs_err_f32"] < 1e-3,
+                   f"sub-pixel stage {r['stage']}")
+        _line("tools_decoder", totals_ms=json.dumps(rep["totals_ms"]),
+              mfu_useful=",".join(f"{r['mfu_current_useful']:.3f}"
+                                 for r in rep["results"]))
+        torch.cuda.empty_cache()
+        rep = _run_tool("profile_train", root, device)
+        ratio = rep["decoder_conv_crosscheck"]["counted_over_analytic"]
+        _line("tools_profile", **{k: f"{v['ms']:.1f}ms/mfu={v['mfu']:.4f}"
+                                  for k, v in rep["programs"].items()},
+              decoder_counted_over_analytic=f"{ratio:.4f}")
+        _check(1.0 <= ratio < 1.25, f"decoder FLOP cross-check {ratio}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace-dir", default=None,
                     help="also write the profiler trace and table here")
     ap.add_argument("--only", action="append",
-                    choices=["serving", "eval", "train"],
+                    choices=["serving", "eval", "train", "tools"],
                     help="run only these groups of phases (repeatable; "
                          "default: all)")
     args = ap.parse_args(argv)
@@ -2503,12 +2626,13 @@ def main(argv=None) -> int:
               "only on the card", file=sys.stderr)
         return 2
     device = "cuda"
-    groups = set(args.only or ("serving", "eval", "train"))
+    groups = set(args.only or ("serving", "eval", "train", "tools"))
     if "eval" in groups:  # the CLIs read the serving phases' weights
         groups.add("serving")
     t_start = time.perf_counter()
     smi = phase_device(device)
     weights = _weights(_config("f32"))
+    wav_f32 = None
     if "serving" in groups:
         t_phase = time.perf_counter()
         wav_f32, noise_f32, ref_f32 = phase_f32(weights, device)
@@ -2588,6 +2712,14 @@ def main(argv=None) -> int:
             timed("ddp_cli", phase_ddp_cli, root, smi, dirs, runs)
         _line("train_phases", seconds=f"{time.perf_counter() - t_train:.1f}",
               **{f"{k}_s": v for k, v in walls.items()})
+
+    if "tools" in groups:
+        t_tools = time.perf_counter()
+        torch.cuda.empty_cache()
+        if wav_f32 is None:
+            wav_f32, noise_f32, ref_f32 = phase_f32(weights, device)
+        phase_tools(device, smi, weights, wav_f32, noise_f32, ref_f32)
+        _line("tools_phases", seconds=f"{time.perf_counter() - t_tools:.1f}")
     # no hand-written kernel is on these paths yet
     print(json.dumps({"kernels": []}))
     _line("done", seconds=f"{time.perf_counter() - t_start:.1f}")

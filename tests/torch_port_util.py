@@ -727,3 +727,27 @@ def check_step_against_jax(recipe, metrics, state, jax_metrics, jax_state,
                      state_at(jax_state, path), f"{recipe['kind']} {name}",
                      prefix="std_DCCRN" if recipe["kind"] == "supervised"
                      else "")
+
+
+# ------------------------------------------- whole fits (trajectories)
+
+
+def fit_both(shared, stage, jtr, ttr, train, val, tmp_path, epochs,
+             early_stop_patience=10):
+    """`fit` of the JAX trainer, then of the port's, on the same loaders
+    inside `shared` (a `port_tools.trajectory_parity.SharedRun` whose
+    patches are installed); returns the comparison of the two."""
+    kw = dict(epochs=epochs, early_stop_patience=early_stop_patience,
+              save_frequency=1)
+    for side, tr in (("jax", jtr), ("port", ttr)):
+        with shared.running(stage, side):
+            tr.fit(train, val, save_dir=str(tmp_path / side), **kw)
+    return shared.compare(stage)
+
+
+def assert_trajectory_match(cmp):
+    """Equal discrete decisions and every loss within the bound."""
+    assert cmp["lr_match"] and cmp["kl_weight_match"], cmp
+    assert cmp["improved_match"] and cmp["epochs_run_match"], cmp
+    assert cmp["first_fail"] is None, cmp["per_epoch"]
+    assert cmp["ok"]
