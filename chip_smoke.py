@@ -3,7 +3,8 @@ CUDA card and check them.
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
-    python3 chip_smoke.py [--trace-dir DIR] [--only serving|eval|train|tools]
+    python3 chip_smoke.py [--trace-dir DIR]
+                          [--only serving|eval|train|tools|utils|quickstart]
 
 It exercises `idccrn_vae_torch` through its entry points at the full
 reference width (channels 1-32-64-128-128-256-256, zdim 128, causal,
@@ -160,8 +161,24 @@ record them):
   tools_phases     their total time
 Every number of every report finite; every busy share in (0, 1].
 
-`--only serving|eval|train|tools` runs one group of phases (eval brings
-serving along: the CLIs read its weights).
+The utilities and the quickstart:
+
+  utils_trace      utils/profiling.trace around one bf16 clean_direct
+                   forward at B=32: the Chrome trace holds CUDA kernel
+                   events
+  utils_timer      StepTimer over 10 such forwards, each stopped by
+                   block_and_stop on its output
+  utils_memory     log_memory: the host's RSS, the card's bytes in use
+                   and peak (> 0)
+  utils_debug      check_finite over the Enhancer's weights;
+                   checkify_finite on a card tensor holding a NaN raises,
+                   and the card still runs afterwards
+  quickstart       idccrn_vae_torch.examples.quickstart on the card in a
+                   temp dir: every stage's checkpoint dir, finite scores,
+                   the streamed wav; each stage's seconds
+
+`--only serving|eval|train|tools|utils|quickstart` runs one group of
+phases (eval brings serving along: the CLIs read its weights).
 
 The port has no hand-written kernel yet: every op of these paths is a
 PyTorch op (cuDNN convolution, cuBLAS matmul and the int8 product
@@ -2612,12 +2629,117 @@ def phase_tools(device, smi: str, weights, wav, noise, ref) -> None:
         _check(1.0 <= ratio < 1.25, f"decoder FLOP cross-check {ratio}")
 
 
+# ------------------------------------------------------ utils, quickstart
+
+UTILS_BATCH = 32
+UTILS_ITERS = 10
+
+
+def _kernel_events(trace_path: str) -> int:
+    """Device kernel events in a Chrome trace written by torch.profiler."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events if e.get("cat") == "kernel")
+
+
+def phase_utils(weights, device: str, smi: str, trace_dir) -> None:
+    """utils/profiling.py and utils/debug.py on the card, around the bf16
+    clean_direct forward at B=32 (3 s clips)."""
+    import tempfile
+
+    from idccrn_vae_torch.utils.debug import check_finite, checkify_finite
+    from idccrn_vae_torch.utils.profiling import (
+        StepTimer,
+        log_memory,
+        trace,
+    )
+
+    enh = _enhancer("bf16", weights, device)
+    gen = enh.new_generator(SEED)
+    wav = 0.1 * torch.randn(UTILS_BATCH, CLIP_S * FS, device=device,
+                            generator=gen)
+    enh.enhance_batch(wav, gen)  # warm: cuDNN plans, the allocator
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_utils_") as tmp:
+        with trace(trace_dir or tmp) as prof:
+            out = enh.enhance_batch(wav, gen)
+        kernels = _kernel_events(prof.trace_path)
+        trace_mb = os.path.getsize(prof.trace_path) / 1e6
+    _check(kernels > 0, "utils trace holds no CUDA kernel event")
+    _check(bool(torch.isfinite(out).all()), "utils forward is not finite")
+    _line("utils_trace", batch=UTILS_BATCH, compute="bf16",
+          kernel_events=kernels, trace_mb=f"{trace_mb:.2f}")
+
+    timer = StepTimer("clean_direct")
+    for _ in range(UTILS_ITERS):
+        timer.__enter__()
+        out = enh.enhance_batch(wav, gen)
+        timer.block_and_stop(out)
+    summary = timer.summary()
+    _check(summary["count"] == UTILS_ITERS, f"StepTimer {summary}")
+    _line("utils_timer", batch=UTILS_BATCH, compute="bf16",
+          **{(k if k == "count" else k[:-2] + "_ms"):
+             (v if k == "count" else f"{1e3 * v:.2f}")
+             for k, v in summary.items()},
+          rtfx=f"{UTILS_BATCH * CLIP_S / summary['mean_s']:.1f}",
+          card=json.dumps(smi))
+
+    mem = log_memory()
+    _check(mem.get("0_peak_bytes_mb", 0) > 0, f"log_memory {mem}")
+    _line("utils_memory", **{k: f"{v:.1f}" for k, v in mem.items()},
+          card=json.dumps(smi))
+
+    check_finite({"encoder": enh.encoder, "decoder": enh.decoder},
+                 "enhancer")
+    bad = torch.tensor([1.0, float("nan"), 2.0], device=device)
+    _check(checkify_finite(bad[::2], "finite") is not None, "checkify")
+    try:
+        checkify_finite(bad, "bad")
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    _check(raised == "NaN/Inf detected in bad", f"checkify_finite {raised}")
+    # the check reads its flag on the host: the CUDA context stays usable
+    after = (torch.ones(4, device=device) * 2).sum().item()
+    _check(after == 8.0, "the card failed after checkify_finite raised")
+    _line("utils_debug", check_finite="enhancer weights finite",
+          checkify_finite=json.dumps(raised), context_after="ok")
+
+
+def phase_quickstart(smi: str) -> None:
+    """idccrn_vae_torch.examples.quickstart on the card (its default
+    device) in a temp dir: every stage's checkpoint dir, the evaluation's
+    scores and the streamed wav."""
+    import tempfile
+
+    from idccrn_vae_torch.data.audio_io import read_wav
+    from idccrn_vae_torch.examples import quickstart
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_qs_") as root:
+        seconds = quickstart.main([root])
+        for name in ("cvae", "nvae", "nsvae", "p2"):
+            run = quickstart.latest(root, name)
+            _check({"meta.json", "best.pt"} <= set(os.listdir(run)),
+                   f"quickstart {name} checkpoint")
+        with open(os.path.join(root, "eval", "per_utterance.json")) as f:
+            scores = json.load(f)
+        _check(len(scores) == 4 and all(
+            np.isfinite(v) for row in scores.values() for v in row.values()),
+            "quickstart scores")
+        wav, _ = read_wav(os.path.join(root, "stream", "streamed.wav"))
+        _check(wav.shape == (3000,) and bool(np.isfinite(wav).all()),
+               f"quickstart stream {wav.shape}")
+    _line("quickstart", **{f"{k}_s": f"{v:.2f}" for k, v in seconds.items()},
+          total_s=f"{sum(seconds.values()):.2f}", card=json.dumps(smi))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace-dir", default=None,
                     help="also write the profiler trace and table here")
     ap.add_argument("--only", action="append",
-                    choices=["serving", "eval", "train", "tools"],
+                    choices=["serving", "eval", "train", "tools",
+                             "utils", "quickstart"],
                     help="run only these groups of phases (repeatable; "
                          "default: all)")
     args = ap.parse_args(argv)
@@ -2626,7 +2748,8 @@ def main(argv=None) -> int:
               "only on the card", file=sys.stderr)
         return 2
     device = "cuda"
-    groups = set(args.only or ("serving", "eval", "train", "tools"))
+    groups = set(args.only or ("serving", "eval", "train", "tools",
+                               "utils", "quickstart"))
     if "eval" in groups:  # the CLIs read the serving phases' weights
         groups.add("serving")
     t_start = time.perf_counter()
@@ -2720,6 +2843,18 @@ def main(argv=None) -> int:
             wav_f32, noise_f32, ref_f32 = phase_f32(weights, device)
         phase_tools(device, smi, weights, wav_f32, noise_f32, ref_f32)
         _line("tools_phases", seconds=f"{time.perf_counter() - t_tools:.1f}")
+
+    if "utils" in groups:
+        t_utils = time.perf_counter()
+        torch.cuda.empty_cache()
+        phase_utils(weights, device, smi, args.trace_dir)
+        _line("utils_phases", seconds=f"{time.perf_counter() - t_utils:.1f}")
+
+    if "quickstart" in groups:
+        t_qs = time.perf_counter()
+        phase_quickstart(smi)
+        _line("quickstart_phases",
+              seconds=f"{time.perf_counter() - t_qs:.1f}")
     # no hand-written kernel is on these paths yet
     print(json.dumps({"kernels": []}))
     _line("done", seconds=f"{time.perf_counter() - t_start:.1f}")

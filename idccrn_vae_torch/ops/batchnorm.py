@@ -32,6 +32,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from idccrn_vae_torch.ops.complex import csplit
 from idccrn_vae_torch.parallel import distributed
 
 _EPS = 1e-5
@@ -102,9 +103,7 @@ def complex_batch_norm_train(x: torch.Tensor, params: Dict[str, torch.Tensor],
     The new statistics carry no autograd history. The copy rule is a
     `torch.where` on the device, so no step waits for the host.
     """
-    c = x.shape[-1] // 2
-    re = x[..., :c].float()
-    im = x[..., c:].float()
+    re, im = (t.float() for t in csplit(x))
     axes = tuple(range(x.dim() - 1))  # (B, F, T): per channel
     mu_r, mu_i = distributed.batch_means([re, im], axes)
     re_c = re - mu_r

@@ -13,6 +13,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from idccrn_vae_torch.ops.complex import csplit
+
 
 def rounded(t: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
     """t rounded to dtype and held in float32.
@@ -35,7 +37,7 @@ def complex_dense(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
 
     wr/wi are torch Linear weights (Out, In); br/bi (Out,).
     """
-    re, im = x.chunk(2, dim=-1)
+    re, im = csplit(x)
     out_re = F.linear(rounded(re, compute_dtype), rounded(wr, compute_dtype),
                       br.float())
     out_im = F.linear(rounded(im, compute_dtype), rounded(wi, compute_dtype),

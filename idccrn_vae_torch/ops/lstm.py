@@ -35,6 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from idccrn_vae_torch.ops.complex import csplit
 from idccrn_vae_torch.ops.dense import rounded
 
 Layer = Dict[str, torch.Tensor]
@@ -142,7 +143,7 @@ def complex_lstm(x: torch.Tensor, params: Dict[str, Sequence[Layer]],
     the stacked batch [xr; xi], as in the JAX package.
     """
     b = x.shape[0]
-    re, im = x.chunk(2, dim=-1)
+    re, im = csplit(x)
     xin = torch.cat([re, im], dim=0)  # (2B, T, In)
     out, finals = _lstm_sets(xin, [params["re"], params["im"]],
                              compute_dtype, state)

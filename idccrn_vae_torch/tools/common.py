@@ -27,6 +27,7 @@ from typing import Callable, Optional
 import torch
 
 from idccrn_vae_torch.device import resolve_device
+from idccrn_vae_torch.utils.profiling import device_memory, fetch, sync
 
 PEAK_TFLOPS = {"bf16": 989.4, "tf32": 494.7, "fp32": 66.9}
 PEAK_SOURCE = ("NVIDIA H100 Tensor Core GPU data sheet, H100 SXM5, dense "
@@ -53,20 +54,6 @@ def geometry(tiny: bool) -> dict:
 
 def device_of(args) -> torch.device:
     return resolve_device(args.device)
-
-
-def sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def fetch(x) -> float:
-    """One element of `x` on the host: waits for what produced it."""
-    if isinstance(x, (tuple, list)):
-        x = x[0]
-    if isinstance(x, dict):
-        x = next(iter(x.values()))
-    return float(x.reshape(-1)[0].item())
 
 
 def time_calls(fn: Callable, calls: int, device: torch.device,
@@ -96,7 +83,7 @@ def peak_gib(device: torch.device) -> Optional[float]:
     """Peak allocated device memory since `reset_peak`; None on the CPU."""
     if device.type != "cuda":
         return None
-    return torch.cuda.max_memory_allocated(device) / 2**30
+    return device_memory(device)[1] / 2**30
 
 
 def nvidia_smi() -> str:

@@ -137,14 +137,16 @@ class FixedDraws:
 
 
 @contextlib.contextmanager
-def fixed_latent_noise(seed: int):
-    """Both packages' NSVAE encoders draw their latent noise from one
-    FixedDraws inside the block."""
+def fixed_latent_noise(seed: int, module: str = "nsvae"):
+    """Both packages' encoders of `module` ('nsvae' or 'vae') draw their
+    latent noise from one FixedDraws inside the block."""
+    import importlib
+
     import jax.numpy as jnp
     import torch
 
-    import idccrn_vae_torch.models.nsvae as tnsvae
-    import idccrn_vae_tpu.models.nsvae as jnsvae
+    tnsvae = importlib.import_module(f"idccrn_vae_torch.models.{module}")
+    jnsvae = importlib.import_module(f"idccrn_vae_tpu.models.{module}")
 
     draws = FixedDraws(seed)
     j_orig, t_orig = jnsvae.reparameterize, tnsvae.reparameterize

@@ -820,7 +820,7 @@ def main(argv=None):
                    help="training stages to run (each needs the ones its "
                         "checkpoints come from)")
     p.add_argument("--evals", default=",".join(EVALS),
-                   help="evaluation legs to run")
+                   help="evaluation legs to run ('' for none)")
     p.add_argument("--root", default=os.path.join(REPO, "traj_run"),
                    help="working directory: corpus and both sides' runs")
     p.add_argument("--out", default=os.path.join(
@@ -837,7 +837,7 @@ def main(argv=None):
         report = run(os.path.abspath(args.root), args.geometry,
                      args.epochs_scale, args.n_train, args.n_val,
                      args.compute, args.seed, args.encoder_dim_start,
-                     args.zdim, evals=tuple(args.evals.split(",")),
+                     args.zdim, evals=tuple(filter(None, args.evals.split(","))),
                      stages=tuple(args.stages.split(",")))
         report["wall_s"] = time.perf_counter() - t0
     with open(args.out, "w") as f:
