@@ -3,8 +3,8 @@ CUDA card and check them.
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
-    python3 chip_smoke.py [--trace-dir DIR]
-                          [--only serving|eval|train|tools|utils|quickstart]
+    python3 chip_smoke.py [--trace-dir DIR] [--only serving|eval|train|
+                          fullwidth|tools|utils|quickstart]
 
 It exercises `idccrn_vae_torch` through its entry points at the full
 reference width (channels 1-32-64-128-128-256-256, zdim 128, causal,
@@ -54,7 +54,7 @@ one summary line each:
                    B=32 and 128 beside bf16's (int8_throughput); each
                    quantized conv at B=32, quantize + im2col + _int_mm +
                    dequantize against the bf16 cuDNN conv (int8_stage)
-  export           torch.export of clean_direct (bf16, 1 s) on the card,
+  export           torch.export of clean_direct (bf16, 0.5 s) on the card,
                    timed; the artifact against the eager program with the
                    same latent draws at B=1 and 32; RTFx of both in
                    turns; an f32 export (0.25 s) against eager, TF32 off;
@@ -98,7 +98,7 @@ Training, at the configs' inis (3 s segments of 481 frames):
                    line: num_samples 5, zero skips) at B=2 on the card
                    against the CPU, TF32 off, same weights, batch and
                    latent draws: the loss and every parameter's gradient,
-                   beside the spread between two card runs; then 10 warm
+                   beside the spread between two card runs; then 4 warm
                    Adam steps at B=16, f32 and bf16: ms per step,
                    segments per second, peak memory
   train_trace      torch.profiler over one warm f32 CVAE step at B=16:
@@ -142,6 +142,21 @@ Training, at the configs' inis (3 s segments of 481 frames):
                    against train_cli's plain run; train_vae --n_devices 2
                    without a group, which resolves to world 1 here
 
+Each trainer's step at bf16 held against its f32 step:
+
+  fullwidth_bf16_step  the six train cases of port_tools/fullwidth_parity.py
+                   (CVAE with zero and with real skips, the NSVAE, phase 2
+                   classical and adversarial, the supervised DCCRN) at
+                   DccrnConfig()'s widths, bf16 and f32 (TF32 off) from the
+                   same weights and draws: each loss's and each trained
+                   model's whole-gradient distance of bf16 from f32 beside
+                   the JAX package's bf16 distance that
+                   FULLWIDTH_PARITY_TORCH.json recorded on the CPU; at the
+                   tool's batch and segment held to its YARD_RATIO times
+                   the port's distance on this host's CPU (same weights
+                   and draws) plus YARD_FLOOR, at the ini's batch of 3 s
+                   segments printed
+
 The measurement tools (`idccrn_vae_torch/tools/`), each at the full
 reference width with the shortened counts TOOL_ARGS gives (the reports
 record them):
@@ -177,8 +192,8 @@ The utilities and the quickstart:
                    temp dir: every stage's checkpoint dir, finite scores,
                    the streamed wav; each stage's seconds
 
-`--only serving|eval|train|tools|utils|quickstart` runs one group of
-phases (eval brings serving along: the CLIs read its weights).
+`--only serving|eval|train|fullwidth|tools|utils|quickstart` runs one
+group of phases (eval brings serving along: the CLIs read its weights).
 
 The port has no hand-written kernel yet: every op of these paths is a
 PyTorch op (cuDNN convolution, cuBLAS matmul and the int8 product
@@ -978,7 +993,7 @@ EXPORT_BF16_REL = 2.0 ** -8
 EXPORT_F32_S = 0.25  # the f32 export's length: tracing time grows with it
 # the bf16 export's clip: tracing costs ~11 ms of host time per graph node,
 # and the node count grows with the frames of the unrolled LSTM
-EXPORT_S = 1
+EXPORT_S = 0.5
 STREAM_EXPORT_CHUNKS = 144
 EXPORT_CLI_S = 0.5  # export_cli's bucket, windowed over the eval corpus
 
@@ -1114,8 +1129,8 @@ def _artifact_check(phase: str, got, want, rel: float, **fields) -> None:
 
 
 def _chained_rtfx(fn, b: int, device: str, iters: int,
-                  seconds: int = CLIP_S) -> float:
-    n = seconds * FS
+                  seconds: float = CLIP_S) -> float:
+    n = int(seconds * FS)
     gen = torch.Generator().manual_seed(SEED + 61)
     wav = (0.1 * torch.randn(b, n, generator=gen)).to(device)
     out = fn(wav)
@@ -1128,13 +1143,13 @@ def _chained_rtfx(fn, b: int, device: str, iters: int,
 
 
 def phase_export(weights, device: str, smi: str) -> None:
-    """torch.export of clean_direct at 1 s (bf16) on the card, timed; the
+    """torch.export of clean_direct at 0.5 s (bf16) on the card, timed; the
     artifact against the eager program with the same draws at B=1 and
     32; RTFx of both; an f32 export against eager with TF32 off; the
     streaming artifact against StreamingEnhancer over 144 chunks."""
     from idccrn_vae_torch.eval import export
 
-    n = EXPORT_S * FS
+    n = int(EXPORT_S * FS)
     enh = _enhancer("bf16", weights, device)
     serving = export.serving_fn_nsvae(enh)
     t0 = time.perf_counter()
@@ -1695,7 +1710,7 @@ TRAIN_SEGMENT = 480 * 100  # a 481-frame segment: (sequence_len - 1) * hop
 PRETRAIN_BATCH = 16  # configs/pretrained_cvae.ini [DataFrame] batch_size
 NSVAE_BATCH = 24  # configs/nsvae_config.ini [DataFrame] batch_size
 CHECK_BATCH = 2
-TRAIN_ITERS = 10
+TRAIN_ITERS = 4
 # One f32 train step on the card against the same step on the CPU (TF32
 # off, same weights, batch and latent draws): the loss within
 # TRAIN_LOSS_REL relative; each parameter's gradient within
@@ -2280,7 +2295,7 @@ def phase_train2_cli(root: str, smi: str, dirs: dict, runs: dict) -> None:
 # ------------------------------------------ data parallelism and remat
 
 DDP_WORLD = 2
-DDP_ITERS = 3
+DDP_ITERS = 1
 DDP_MI_WEIGHT = 0.2
 # world 2 against world 1 on the card, TF32 off: the standing card
 # bounds (TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2, PRELU_GRAD_REL_L2); each
@@ -2528,6 +2543,196 @@ def phase_remat(device: str, smi: str) -> None:
 # ------------------------------------------------------ measurement tools
 
 # the tools' shortened counts here; their defaults are the JAX tools'
+# fullwidth_bf16_step: each trainer's step at the reference geometry at
+# bf16 against the same step at f32 (TF32 off), from the same weights and
+# latent draws, the recipes of the CPU parity tool
+# (port_tools/fullwidth_parity.py, which builds them with
+# tests/torch_port_util.py's pair helpers), from the port's own seeded
+# init. At the tool's batch and segment each loss component's and each
+# trained model's whole-gradient distance of bf16 from f32 on the card is
+# held to the tool's yardstick against the same step of the port on this
+# host's CPU (same weights and draws): YARD_RATIO times the CPU's
+# distance plus YARD_FLOOR; the JAX package's distances recorded by the
+# tool (FULLWIDTH_PARITY_TORCH.json, from JAX's init) are printed beside.
+# At the ini's batch of 3 s segments the card's distances are printed.
+FULLWIDTH_JSON = "FULLWIDTH_PARITY_TORCH.json"
+FULLWIDTH_CASES = {"pretrain_zero": 16, "pretrain_real": 16, "nsvae": 24,
+                   "phase2": 16, "phase2_adv": 16, "supervised": 16}
+FULLWIDTH_LR = 1e-2
+
+
+def _fullwidth_base(compute: str):
+    """DccrnConfig()'s widths and STFT, num_samples 1."""
+    from idccrn_vae_torch.models.config import DccrnConfig
+
+    return DccrnConfig(num_samples=1, compute=compute)
+
+
+def _fullwidth_trainer(case: str, compute: str, device: str):
+    """The port side of torch_port_util's pair helper for `case`, at
+    DccrnConfig()'s widths and the default STFT."""
+    import dataclasses
+
+    from idccrn_vae_torch.losses.nsvae_loss import NsvaeTrueKlLoss
+    from idccrn_vae_torch.losses.phase2 import EteTrainSeLoss, TwoPhaseLoss
+    from idccrn_vae_torch.losses.vae_loss import PretrainVaeLoss
+    from idccrn_vae_torch.train.nsvae import NsvaeTrainer
+    from idccrn_vae_torch.train.phase2 import Phase2Trainer
+    from idccrn_vae_torch.train.pretrain import PretrainTrainer
+    from idccrn_vae_torch.train.supervised import SupervisedTrainer
+
+    base = _fullwidth_base(compute)
+    kw = dict(seed=SEED + 110, device=device)
+    if case.startswith("pretrain"):
+        cfg = dataclasses.replace(
+            base, num_samples=2,
+            skip_mode="zero" if case == "pretrain_zero" else "real")
+        loss = PretrainVaeLoss(np.asarray([0.1, 0.5], np.float32), 0.05,
+                               mi_weight=0.2, num_samples=2,
+                               recon_loss_weight=(1.0, 0.5, 0.1))
+        return PretrainTrainer(cfg, loss, FULLWIDTH_LR, **kw)
+    if case == "nsvae":
+        noisy = dataclasses.replace(base, latent_num=2)
+        loss = NsvaeTrueKlLoss(0.8, 0.3, 1.0, 0.5, noisy, matching="both")
+        return NsvaeTrainer(base, noisy, loss, FULLWIDTH_LR,
+                            trainable={"clean_enc": True}, **kw)
+    if case.startswith("phase2"):
+        enc = dataclasses.replace(base, latent_num=2)
+        dec = dataclasses.replace(enc, skip_mode="runtime", recon_type="mask")
+        adv = case == "phase2_adv"
+        return Phase2Trainer(enc, dec, TwoPhaseLoss((1.0, 0.5, 0.2),
+                                                    alpha=1.0, latent_num=2),
+                             FULLWIDTH_LR, adversarial=adv,
+                             dis_lr=2 * FULLWIDTH_LR, d_step=1, **kw)
+    cfg = dataclasses.replace(base, causal=True, recon_type="mask",
+                              skip_mode="real")
+    gen = torch.Generator().manual_seed(SEED + 111)
+    bins = cfg.stft.n_fft // 2 + 1
+    dn = ((0.01 * torch.randn(bins, 2, generator=gen)).numpy(),
+          (1.0 + 0.1 * torch.rand(bins, 2, generator=gen)).numpy())
+    return SupervisedTrainer(cfg, EteTrainSeLoss((1.0, 1.0, 0.5)),
+                             FULLWIDTH_LR, datanorm=dn, **kw)
+
+
+def _fullwidth_step(case: str, compute: str, device: str, weights, batch,
+                    eps):
+    """One step of `case` from `weights`: (losses, {model: gradients})."""
+    trainer = _fullwidth_trainer(case, compute, device)
+    for name, module in trainer.models.items():
+        module.load_state_dict(weights[name])
+    if case.startswith("pretrain"):
+        metrics = trainer.train_step(batch, None, 1, noise=eps[0])
+    elif case.startswith("phase2"):
+        metrics = trainer.train_step(batch, None, 0, *eps)
+    else:
+        metrics = trainer.train_step(batch, None, 0)
+    losses = {k: float(v) for k, v in metrics.items()}
+    return losses, {n: _grads(m) for n, m in trainer.models.items()}
+
+
+def _jax_bf16_record(case: str):
+    """({"loss:<k>" or "model:<m>": the JAX bf16 step's largest distance
+    from JAX f32 over the CPU tool's seeds}, the tool's setting)."""
+    with open(os.path.join(REPO, FULLWIDTH_JSON)) as f:
+        report = json.load(f)
+    out = {}
+    for rec in report["cases"][case].values():
+        for key, row in rec["bf16"]["rows"].items():
+            out[key] = max(out.get(key, 0.0), row["jax"])
+    return out, report["setting"]
+
+
+def _fullwidth_distances(case: str, b: int, samples: int, device: str):
+    """One step of `case` at f32 (TF32 off) and at bf16 on `device`, B=b
+    segments of `samples`, from the same weights and draws: {"loss:<k>" or
+    "model:<m>": bf16's distance from f32} and the three parameters
+    furthest from f32 (BN-fed conv biases aside)."""
+    gen = torch.Generator().manual_seed(SEED + 112)
+    k = 1 if case.startswith("pretrain") else (
+        2 if case == "supervised" else 3)
+    wavs = tuple(0.1 * torch.randn(b, samples, generator=gen)
+                 for _ in range(k))
+    batch = tuple(x.to(device) for x in wavs) if k > 1 else \
+        wavs[0].to(device)
+    cfg = _fullwidth_base("f32")
+    frames = samples // cfg.stft.hop + 1
+    s = 2 if case.startswith("pretrain") else 1
+    eps = [tuple(torch.randn(b, s, frames, cfg.zdim, generator=gen)
+                 .to(device) for _ in range(2)) for _ in range(2)]
+    init = _fullwidth_trainer(case, "f32", "cpu")
+    weights = {n: m.state_dict() for n, m in init.models.items()}
+    with _NoTf32():
+        l32, g32 = _fullwidth_step(case, "f32", device, weights, batch, eps)
+    l16, g16 = _fullwidth_step(case, "bf16", device, weights, batch, eps)
+    _check(set(l16) == set(l32), f"fullwidth_bf16_step {case}: losses")
+    out = {f"loss:{k}": abs(l16[k] - l32[k]) / abs(l32[k]) if l32[k] != 0
+           else abs(l16[k]) for k in l32}
+    worst = []
+    for n in g32:
+        if not g32[n]:  # frozen
+            continue
+        keys = sorted(g32[n])
+        out[f"model:{n}"] = _rel_l2(
+            torch.cat([g16[n][p].flatten() for p in keys]),
+            torch.cat([g32[n][p].flatten() for p in keys]))
+        # a conv bias ahead of a train-mode BN has a gradient of rounding
+        worst += [(_rel_l2(g16[n][p], g32[n][p]), f"{n}.{p}") for p in keys
+                  if float(g32[n][p].norm()) > 0
+                  and not (p.endswith("bias") and "conv" in p)]
+    for key, v in out.items():
+        _check(np.isfinite(v), f"fullwidth_bf16_step {case} {key}")
+    return out, sorted(worst, reverse=True)[:3]
+
+
+def phase_fullwidth_bf16_step(device: str, smi: str) -> None:
+    """Each case's step, bf16 against f32 (TF32 off) from the same weights
+    and draws, at two sizes. At the CPU tool's batch and segment it runs
+    on the card and on this host's CPU: every loss component's relative
+    error and every trained model's whole-gradient relative L2 on the card
+    is held to YARD_RATIO times the port's on the CPU plus YARD_FLOOR,
+    and printed beside the JAX package's largest bf16 distance that the
+    tool recorded (FULLWIDTH_PARITY_TORCH.json, which holds the port's CPU
+    step to the same yardstick against JAX: card ~ CPU port ~ JAX). At the
+    ini's batch of 3 s segments it runs on the card and is printed beside
+    the same record: no reference runs at that size (a CPU step there
+    takes minutes), and the phase-2 steps' bf16 distance there, from the
+    port's seeded init and these batches, reads 0.42-0.57 against 0.11 at
+    the tool's size (PERF.md, section 6)."""
+    t_phase = time.perf_counter()
+    for case, ini_b in FULLWIDTH_CASES.items():
+        t0 = time.perf_counter()
+        jax_d, setting = _jax_bf16_record(case)
+        ratio, floor = setting["yard_ratio"], setting["yard_floor"]
+        b, samples = setting["batch"], setting["samples"]
+        cpu, _ = _fullwidth_distances(case, b, samples, "cpu")
+        over = []
+        for size, b, samples in (("cpu_tool", b, samples),
+                                 ("ini", ini_b, TRAIN_SEGMENT)):
+            got, worst = _fullwidth_distances(case, b, samples, device)
+            _check(set(got) == set(jax_d) == set(cpu),
+                   f"fullwidth_bf16_step {case}: rows {sorted(got)}")
+            held = size == "cpu_tool"
+            for key in sorted(got):
+                fields = dict(card_bf16_vs_f32=f"{got[key]:.4e}")
+                if held:
+                    bound = ratio * cpu[key] + floor
+                    fields.update(cpu_port_bf16_vs_f32=f"{cpu[key]:.4e}",
+                                  bound=f"{bound:.4e}")
+                    if got[key] > bound:
+                        over.append(f"{key} {got[key]:.4e} > {bound:.4e}")
+                _line("fullwidth_bf16_step", case=case, size=size, batch=b,
+                      frames=samples // 100 + 1, what=key, **fields,
+                      jax_cpu_tool_bf16_vs_f32=f"{jax_d[key]:.4e}",
+                      card=json.dumps(smi))
+            _line("fullwidth_bf16_step", case=case, size=size,
+                  worst_params=json.dumps([(p, float(f"{d:.4g}"))
+                                           for d, p in worst]))
+        _line("fullwidth_bf16_step", case=case,
+              seconds=f"{time.perf_counter() - t0:.1f}")
+        _check(not over, f"fullwidth_bf16_step {case}: {'; '.join(over)}")
+    _line("fullwidth_bf16_step", seconds=f"{time.perf_counter() - t_phase:.1f}")
+
+
 TOOL_ARGS = {"bench": ["--iters", "3"],
              "train_bench": ["--steps", "1"],
              "stream_bench": ["--iters", "10"],
@@ -2738,8 +2943,8 @@ def main(argv=None) -> int:
     ap.add_argument("--trace-dir", default=None,
                     help="also write the profiler trace and table here")
     ap.add_argument("--only", action="append",
-                    choices=["serving", "eval", "train", "tools",
-                             "utils", "quickstart"],
+                    choices=["serving", "eval", "train", "fullwidth",
+                             "tools", "utils", "quickstart"],
                     help="run only these groups of phases (repeatable; "
                          "default: all)")
     args = ap.parse_args(argv)
@@ -2748,8 +2953,8 @@ def main(argv=None) -> int:
               "only on the card", file=sys.stderr)
         return 2
     device = "cuda"
-    groups = set(args.only or ("serving", "eval", "train", "tools",
-                               "utils", "quickstart"))
+    groups = set(args.only or ("serving", "eval", "train", "fullwidth",
+                               "tools", "utils", "quickstart"))
     if "eval" in groups:  # the CLIs read the serving phases' weights
         groups.add("serving")
     t_start = time.perf_counter()
@@ -2835,6 +3040,10 @@ def main(argv=None) -> int:
             timed("ddp_cli", phase_ddp_cli, root, smi, dirs, runs)
         _line("train_phases", seconds=f"{time.perf_counter() - t_train:.1f}",
               **{f"{k}_s": v for k, v in walls.items()})
+
+    if "fullwidth" in groups:
+        torch.cuda.empty_cache()
+        phase_fullwidth_bf16_step(device, smi)
 
     if "tools" in groups:
         t_tools = time.perf_counter()

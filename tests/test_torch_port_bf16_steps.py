@@ -25,6 +25,10 @@ dense layer, and the same stages backward). Hence:
 Measured: losses within 1.4e-3, whole updates within 3.3e-2, each
 parameter within 0.21 (a BN beta and a dense bias, whose gradients are
 sums that cancel heavily).
+DEPTH * BF16_REL is calibrated at the tiny geometry only; at the
+reference geometry rounding alone passes it, and bf16 steps are held by
+the yardstick measured from the f32 step instead (torch_port_util's
+`yardstick`, tests/test_torch_port_fullwidth.py).
 
 Two kinds of parameters are held otherwise:
   * A conv bias feeding a train-mode BN, which subtracts the channel's
@@ -52,7 +56,6 @@ import json
 import math
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -62,6 +65,7 @@ from torch_port_util import (
     BF16_REL,
     NoiseStream,
     clone_state,
+    f32_slope_prelu,
     nsvae_pair,
     patch_jax_noise,
     patch_port_noise,
@@ -91,23 +95,8 @@ def margins():
 def f32_slope_sum(monkeypatch):
     """The JAX PReLU with its slope's cotangent summed in float32: the
     same forward and input cotangent, the same bf16 products ct * x."""
-
-    @jax.custom_vjp
-    def prelu(x, alpha):
-        return jnp.where(x >= 0, x, alpha.astype(x.dtype) * x)
-
-    def fwd(x, alpha):
-        return prelu(x, alpha), (x, alpha)
-
-    def bwd(res, ct):
-        x, alpha = res
-        neg = x < 0
-        ct_x = jnp.where(neg, alpha.astype(x.dtype) * ct, ct)
-        terms = jnp.where(neg, ct * x, jnp.zeros_like(x))
-        return ct_x, jnp.sum(terms.astype(jnp.float32)).astype(alpha.dtype)
-
-    prelu.defvjp(fwd, bwd)
-    monkeypatch.setattr("idccrn_vae_tpu.models.modules.prelu", prelu)
+    monkeypatch.setattr("idccrn_vae_tpu.models.modules.prelu",
+                        f32_slope_prelu())
 
 
 def check_losses(got, want, margins):

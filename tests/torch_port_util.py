@@ -47,18 +47,22 @@ def subprocess_env(**extra) -> dict:
 
 
 TINY = dict(encoder_channels=(1, 2, 2, 4, 4, 4, 4), zdim=4, num_samples=1)
+# DccrnConfig()'s widths (channels 1-32-64-128-128-256-256, zdim 128, LSTM
+# hidden 128) and each side's default StftConfig (n_fft 512: 257 bins)
+REFERENCE = dict(num_samples=1)
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 # a parameter's delta after one SGD step (tests/test_oracle_train_step.py)
 GRAD_TOL = dict(atol=5e-6, rtol=5e-3)
 BF16_REL = 2e-2
 
 
-def configs(**overrides):
-    """(JAX config, port config) with the same fields, tiny geometry.
+def configs(geometry="tiny", **overrides):
+    """(JAX config, port config) with the same fields, at `geometry`:
+    "tiny" (TINY) or "reference" (DccrnConfig()'s widths).
 
     stft: optional dict of StftConfig fields (e.g. TINY_STFT), built
     into each side's own StftConfig."""
-    fields = dict(TINY, **overrides)
+    fields = dict(TINY if geometry == "tiny" else REFERENCE, **overrides)
     stft = fields.pop("stft", None)
     if stft is None:
         return JaxConfig(**fields), TorchConfig(**fields)
@@ -71,6 +75,27 @@ def configs(**overrides):
 
 # n_fft 32: 17 frequency bins, 1 at the bottleneck of the 6 stages
 TINY_STFT = dict(n_fft=32, hop=8, win_length=16)
+
+
+def geo_configs(geometry="tiny", **fields):
+    """`configs` of a trainer helper: the tiny geometry with TINY_STFT,
+    or the reference geometry with each side's default STFT."""
+    if geometry == "tiny":
+        return configs(stft=TINY_STFT, **fields)
+    assert geometry == "reference", geometry
+    return configs("reference", **fields)
+
+
+def freq_bins(geometry="tiny") -> int:
+    """The STFT's frequency bins at `geometry` (a datanorm's rows)."""
+    n_fft = TINY_STFT["n_fft"] if geometry == "tiny" else 512
+    return n_fft // 2 + 1
+
+
+def init_key(seed):
+    """A JAX trainer's `init_state` key: its own default when seed is
+    None, else PRNGKey(seed)."""
+    return None if seed is None else jax.random.PRNGKey(seed)
 
 
 def np_vars(variables):
@@ -204,6 +229,62 @@ def check_models(port, before, jax_after, what, prefix=""):
     return moved
 
 
+def f32_param_bound(kappa=None, even=None) -> float:
+    """A parameter update's f32 bound in relative L2: GRAD_TOL's rtol,
+    times max(1, SPREAD_K * kappa, SPREAD_K * even): kappa, for a PReLU
+    slope, whose gradient is one cancelling sum, the L2 norm of the sum's
+    terms over the sum (`SlopeTerms`; each term within rtol, their errors
+    independent); even, the parameter's `even_share` of a model update
+    held to rtol (an update near zero by the model's structure, a last
+    stage's BN gamma_ri, has only its share of the model's error)."""
+    return GRAD_TOL["rtol"] * max(1.0, SPREAD_K * (kappa or 0.0),
+                                  SPREAD_K * (even or 0.0))
+
+
+def check_models_l2(port, before, jax_after, what, prefix="", kappa=None):
+    """`check_models` at the reference geometry: each parameter's update
+    within `f32_param_bound` in relative L2 (a BN-fed conv bias, whose
+    update is rounding, by its share of the model's update, within
+    GRAD_TOL's rtol), buffers at F32_TOL, BN counters equal. Element by
+    element GRAD_TOL holds the JAX package to less than its own f32
+    reproducibility at this geometry (tests/test_torch_port_fullwidth.py).
+    kappa: {param: its slope's kappa}. Returns {param: relative L2 over
+    its bound}."""
+    from idccrn_vae_torch.models.from_jax import jax_bn_counts
+    from idccrn_vae_torch.models.modules import ComplexBatchNorm
+
+    want = state_dict_of(jax_after, prefix)
+    got = port.state_dict()
+    assert sorted(got) == sorted(want)
+    names = [n for n, _ in port.named_parameters()]
+    d_got = {k: (got[k] - before[k]).double() for k in names}
+    d_want = {k: (want[k].reshape(got[k].shape) - before[k]).double()
+              for k in names}
+    flat = torch.cat([d.flatten() for d in d_want.values()])
+    whole = flat.norm()
+    rel = {}
+    for k in names:
+        if bn_fed_bias(k):
+            share = float((d_got[k] - d_want[k]).norm() / whole)
+            assert share <= GRAD_TOL["rtol"], (what, k, share)
+            continue
+        even = even_share(d_want[k].numel(), flat.numel(),
+                          float(d_want[k].norm() / whole))
+        rel[k] = rel_dist(d_got[k], d_want[k]) / f32_param_bound(
+            (kappa or {}).get(k), even)
+        assert rel[k] <= 1, (what, k, rel[k])
+    for k in want:
+        if k not in d_got:
+            np.testing.assert_allclose(got[k].numpy(),
+                                       want[k].reshape(got[k].shape).numpy(),
+                                       err_msg=f"{what} {k}", **F32_TOL)
+    counts = jax_bn_counts(np_vars(jax_after), prefix)
+    for name, m in port.named_modules():
+        if isinstance(m, ComplexBatchNorm):
+            assert int(m.count) == counts[name], (what, name)
+    return rel
+
+
 def value_and_grads(fn_j, fn_t, inputs, seed=0):
     """Run fn_j (dict of jnp arrays -> tuple of outputs) and fn_t (dict
     of torch tensors -> tuple of outputs) on the same inputs; compare
@@ -258,19 +339,23 @@ def wav_batch(seed: int, b: int, n: int) -> np.ndarray:
 
 TRAIN_LR = 1e-2
 TRAIN_B, TRAIN_L = 3, 800
+# a reference-geometry step's segment: 0.5 s, 81 frames of the default STFT
+REFERENCE_L = 8000
+STEP_LEN = {"tiny": TRAIN_L, "reference": REFERENCE_L}
 
 
-def train_wav(seed, n=TRAIN_B):
+def train_wav(seed, n=TRAIN_B, length=TRAIN_L):
     return (0.3 * np.random.default_rng(seed).standard_normal(
-        (n, TRAIN_L))).astype(np.float32)
+        (n, length))).astype(np.float32)
 
 
 def pretrain_pair(monkeypatch, sgd=True, warm=False, datanorm=False,
-                  **cfg_kw):
+                  geometry="tiny", seed=None, **cfg_kw):
     """(JAX trainer, JAX state, port trainer) of CVAE pretraining from the
-    same weights, tiny geometry, num_samples 2; `datanorm` gives both a
+    same weights, at `geometry`, num_samples 2; `datanorm` gives both a
     per-bin (mean, std); `warm` takes one JAX step first (the BN
-    counters are 1 when the port loads) and starts fresh optimizers."""
+    counters are 1 when the port loads) and starts fresh optimizers;
+    `seed` picks the JAX init (default: the trainer's own)."""
     import optax
 
     from idccrn_vae_tpu.losses.vae_loss import PretrainVaeLoss as JVaeLoss
@@ -282,15 +367,15 @@ def pretrain_pair(monkeypatch, sgd=True, warm=False, datanorm=False,
     from idccrn_vae_torch.train.pretrain import PretrainTrainer
 
     lr = TRAIN_LR
-    jc, tc = configs(stft=TINY_STFT, num_samples=2, **cfg_kw)
+    jc, tc = geo_configs(geometry, num_samples=2, **cfg_kw)
     kw = dict(kl_weight=0.05, mi_weight=0.2, num_samples=2,
               recon_loss_weight=(1.0, 0.5, 0.1))
     warm_w = np.asarray([0.1, 0.5], np.float32)
-    dn = datanorm_stats(8, TINY_STFT["n_fft"] // 2 + 1) if datanorm else None
+    dn = datanorm_stats(8, freq_bins(geometry)) if datanorm else None
     jtr = JPretrainTrainer(jc, JVaeLoss(warm_w, **kw), lr, datanorm=dn)
     if sgd:
         jtr.tx_en = jtr.tx_de = optax.sgd(lr)
-    state = jtr.init_state()
+    state = jtr.init_state(init_key(seed))
     if warm:
         patch_jax_noise(monkeypatch, NoiseStream(9),
                         module="idccrn_vae_tpu.models.vae")
@@ -308,10 +393,11 @@ def pretrain_pair(monkeypatch, sgd=True, warm=False, datanorm=False,
     return jtr, state, ttr
 
 
-def nsvae_pair(trainable=None, sgd=True, **cfg_kw):
+def nsvae_pair(trainable=None, sgd=True, geometry="tiny", seed=None,
+               **cfg_kw):
     """(JAX trainer, JAX state, port trainer) of NSVAE posterior
     matching: latent_num 2, original channels, matching 'both', from the
-    same weights."""
+    same weights, at `geometry`; `seed` picks the JAX init."""
     import optax
 
     from idccrn_vae_tpu.losses.nsvae_loss import (
@@ -323,15 +409,15 @@ def nsvae_pair(trainable=None, sgd=True, **cfg_kw):
     from idccrn_vae_torch.train.nsvae import NsvaeTrainer
 
     lr = TRAIN_LR
-    jpre, tpre = configs(stft=TINY_STFT, **cfg_kw)
-    jnoisy, tnoisy = configs(stft=TINY_STFT, latent_num=2, **cfg_kw)
+    jpre, tpre = geo_configs(geometry, **cfg_kw)
+    jnoisy, tnoisy = geo_configs(geometry, latent_num=2, **cfg_kw)
     kw = dict(alpha=0.8, w_resi=0.3, w_kl=1.0, w_dismiu=0.5,
               matching="both")
     jtr = JNsvaeTrainer(jpre, jnoisy, JNsvaeLoss(cfg=jnoisy, **kw), lr,
                         trainable=trainable)
     if sgd:
         jtr.tx = optax.sgd(lr)
-    state = jtr.init_state()
+    state = jtr.init_state(init_key(seed))
     ttr = NsvaeTrainer(tpre, tnoisy, NsvaeTrueKlLoss(cfg=tnoisy, **kw), lr,
                        trainable=trainable, device="cpu")
     for name, m in ttr.models.items():
@@ -343,10 +429,12 @@ def nsvae_pair(trainable=None, sgd=True, **cfg_kw):
     return jtr, state, ttr
 
 
-def supervised_pair(datanorm, **cfg_kw):
+def supervised_pair(datanorm, geometry="tiny", seed=None, **cfg_kw):
     """(JAX trainer, JAX state, port trainer) of the supervised DCCRN with
     SGD, from the same weights: the supervised_dccrn.ini usage line
-    (causal, mask, real skips) at tiny geometry."""
+    (causal, mask, real skips) at `geometry` (tiny: LSTM hidden 8;
+    reference: the ini's, DccrnConfig's 128); `seed` picks the JAX
+    init."""
     import optax
 
     from idccrn_vae_tpu.losses.phase2 import EteTrainSeLoss as JLoss
@@ -358,13 +446,15 @@ def supervised_pair(datanorm, **cfg_kw):
     from idccrn_vae_torch.train.supervised import SupervisedTrainer
 
     lr = TRAIN_LR
-    jc, tc = configs(stft=TINY_STFT, causal=True, recon_type="mask",
-                     skip_mode="real", lstm_hidden=8, **cfg_kw)
-    dn = datanorm_stats(3, TINY_STFT["n_fft"] // 2 + 1) if datanorm else None
+    if geometry == "tiny":
+        cfg_kw = dict(lstm_hidden=8, **cfg_kw)
+    jc, tc = geo_configs(geometry, causal=True, recon_type="mask",
+                         skip_mode="real", **cfg_kw)
+    dn = datanorm_stats(3, freq_bins(geometry)) if datanorm else None
     weights = (1.0, 1.0, 0.5)
     jtr = JTrainer(jc, JLoss(weights), lr, datanorm=dn)
     jtr.tx = optax.sgd(lr)
-    state = jtr.init_state()
+    state = jtr.init_state(init_key(seed))
     ttr = SupervisedTrainer(tc, EteTrainSeLoss(weights), lr, datanorm=dn,
                             device="cpu")
     load_jax_variables(ttr.model, np_vars(state["model"]))
@@ -379,14 +469,14 @@ PHASE2_B, PHASE2_L = 3, 800
 _PHASE2_JAX = {}
 
 
-def phase2_wav(seed, n=PHASE2_B):
+def phase2_wav(seed, n=PHASE2_B, length=PHASE2_L):
     return (0.3 * np.random.default_rng(seed).standard_normal(
-        (n, PHASE2_L))).astype(np.float32)
+        (n, length))).astype(np.float32)
 
 
-def phase2_batch(seed):
+def phase2_batch(seed, n=PHASE2_B, length=PHASE2_L):
     """(noisy, clean, noise) waveforms of a phase-2 training batch."""
-    return tuple(phase2_wav(seed + k) for k in range(3))
+    return tuple(phase2_wav(seed + k, n, length) for k in range(3))
 
 
 def clone_state(module):
@@ -395,12 +485,12 @@ def clone_state(module):
 
 def phase2_pair(monkeypatch, sgd=True, adversarial=False, d_step=1,
                 decode_update="all_decode", latent_num=1, enc_kw=None,
-                dec_kw=None):
+                dec_kw=None, geometry="tiny", seed=None):
     """(JAX trainer, JAX state, port trainer) of phase 2 from the same
-    weights, tiny geometry; the encoder's latent draws patched on both
-    sides (`FixedNoise`). JAX trainers that differ only in d_step are one
-    object (d_step is read outside its jitted step), so the d_step cases
-    share its compiled programs."""
+    weights, at `geometry`; the encoder's latent draws patched on both
+    sides (`FixedNoise`); `seed` picks the JAX init. JAX trainers that
+    differ only in d_step are one object (d_step is read outside its
+    jitted step), so the d_step cases share its compiled programs."""
     import optax
 
     from idccrn_vae_tpu.losses import phase2 as jloss
@@ -416,20 +506,21 @@ def phase2_pair(monkeypatch, sgd=True, adversarial=False, d_step=1,
     enc_kw = dict(latent_num=latent_num, **(enc_kw or {}))
     dec_kw = dict(latent_num=latent_num, skip_mode="runtime",
                   recon_type="mask", **(dec_kw or {}))
-    jenc, tenc = configs(stft=TINY_STFT, **enc_kw)
-    jdec, tdec = configs(stft=TINY_STFT, **dec_kw)
+    jenc, tenc = geo_configs(geometry, **enc_kw)
+    jdec, tdec = geo_configs(geometry, **dec_kw)
     kw = dict(recon_loss_weight=(1.0, 0.5, 0.2), alpha=1.0,
               latent_num=latent_num)
     trainer_kw = dict(adversarial=adversarial, dis_lr=2 * lr, d_step=d_step,
                       decode_update=decode_update)
-    key = repr((sgd, enc_kw, dec_kw, adversarial, decode_update))
+    key = repr((sgd, enc_kw, dec_kw, adversarial, decode_update, geometry,
+                seed))
     if key not in _PHASE2_JAX:
         jtr = JPhase2Trainer(jenc, jdec, jloss.TwoPhaseLoss(**kw), lr,
                              **trainer_kw)
         if sgd:
             jtr.tx = optax.sgd(lr)
             jtr.tx_dis = optax.sgd(2 * lr) if adversarial else None
-        _PHASE2_JAX[key] = (jtr, jtr.init_state())
+        _PHASE2_JAX[key] = (jtr, jtr.init_state(init_key(seed)))
     jtr, state = _PHASE2_JAX[key]
     jtr.d_step, jtr._batch_counter = d_step, 0
     ttr = Phase2Trainer(tenc, tdec, tloss.TwoPhaseLoss(**kw), lr,
@@ -443,7 +534,7 @@ def phase2_pair(monkeypatch, sgd=True, adversarial=False, d_step=1,
              for p in trained_parameters(d, decode_update)], lr=lr)
         if adversarial:
             ttr.opt_dis = torch.optim.SGD(ttr.dis.parameters(), lr=2 * lr)
-    noise = FixedNoise(5)
+    noise = FixedNoise(5 if seed is None else seed)
     patch_jax_noise(monkeypatch, noise)
     patch_port_noise(monkeypatch, noise)
     return jtr, state, ttr
@@ -629,9 +720,10 @@ def _recipe(kind, ttr, args, kwargs, sgd, batch):
                 models=ranks.model_state(ttr), epoch=1, seed=7)
 
 
-def step_cases(monkeypatch, b, **cfg_kw):
+def step_cases(monkeypatch, b, geometry="tiny", **cfg_kw):
     """One SGD step of each of the four trainers, from the JAX trainers'
-    initial weights, at a batch of `b`, with `cfg_kw` in every config:
+    initial weights, at a batch of `b` segments of STEP_LEN[geometry]
+    samples, at `geometry`, with `cfg_kw` in every config:
     pretraining with the MI term (real skips), the NSVAE with its partial
     freeze, adversarial phase 2 at d_step 2 (its first step updates D),
     and the supervised DCCRN. Returns a list of (recipe for
@@ -639,30 +731,34 @@ def step_cases(monkeypatch, b, **cfg_kw):
     the JAX state). The port's encoders draw from their generators."""
     from idccrn_vae_torch.models import reparam
 
-    out = []
-    jtr, state, ttr = pretrain_pair(monkeypatch, skip_mode="real", **cfg_kw)
+    out, length = [], STEP_LEN[geometry]
+    jtr, state, ttr = pretrain_pair(monkeypatch, skip_mode="real",
+                                    geometry=geometry, **cfg_kw)
     out.append((_recipe("pretrain", ttr, (ttr.cfg, ttr.loss, TRAIN_LR), {},
                       {"opt_en": TRAIN_LR, "opt_de": TRAIN_LR},
-                      train_wav(1, b)),
+                      train_wav(1, b, length)),
                 jtr, state, {"enc": ("enc",), "dec": ("dec",)}))
-    jtr, state, ttr = nsvae_pair({"clean_enc": True}, **cfg_kw)
+    jtr, state, ttr = nsvae_pair({"clean_enc": True}, geometry=geometry,
+                                 **cfg_kw)
     out.append((_recipe("nsvae", ttr,
                       (ttr.pre_cfg, ttr.noisy_cfg, ttr.loss, TRAIN_LR),
                       {"trainable": ttr.trainable}, {"opt": TRAIN_LR},
-                      tuple(train_wav(s, b) for s in (2, 3, 4))),
+                      tuple(train_wav(s, b, length) for s in (2, 3, 4))),
                 jtr, state, {n: ("models", n) for n in ttr.models}))
     jtr, state, ttr = phase2_pair(monkeypatch, adversarial=True, d_step=2,
-                                  enc_kw=cfg_kw, dec_kw=cfg_kw)
+                                  enc_kw=cfg_kw, dec_kw=cfg_kw,
+                                  geometry=geometry)
     out.append((_recipe("phase2", ttr,
                       (ttr.enc_cfg, ttr.dec_cfg, ttr.loss, PHASE2_LR),
                       dict(adversarial=True, dis_lr=2 * PHASE2_LR, d_step=2),
                       {"opt": PHASE2_LR, "opt_dis": 2 * PHASE2_LR},
-                      tuple(phase2_wav(s, b) for s in (5, 6, 7))),
+                      tuple(phase2_wav(s, b, length) for s in (5, 6, 7))),
                 jtr, state, {n: ("models", n) for n in ttr.models}))
-    jtr, state, ttr = supervised_pair(False, **cfg_kw)
+    jtr, state, ttr = supervised_pair(False, geometry=geometry,
+                                      **cfg_kw)
     out.append((_recipe("supervised", ttr, (ttr.cfg, ttr.loss, TRAIN_LR), {},
                       {"opt": TRAIN_LR},
-                      tuple(train_wav(s, b) for s in (8, 9))),
+                      tuple(train_wav(s, b, length) for s in (8, 9))),
                 jtr, state, {"model": ("model",)}))
     # the pair helpers route the port's draws through fixed streams: the
     # steps here draw from their generators
@@ -751,3 +847,266 @@ def assert_trajectory_match(cmp):
     assert cmp["improved_match"] and cmp["epochs_run_match"], cmp
     assert cmp["first_fail"] is None, cmp["per_epoch"]
     assert cmp["ok"]
+
+
+# ------------------------------------------------- the bf16 yardstick
+#
+# A bf16 step is held against the float32 truth, not against the other
+# framework's bf16 step. Three steps run from the same weights, batch and
+# latent draws: JAX at f32 (the truth), JAX at bf16 and the port at bf16.
+# Each quantity q (a loss component, a model's whole update, one
+# parameter's update, a serving output) passes when
+#
+#   dist(q_port_bf16, q_jax_f32) <= YARD_RATIO * dist(q_jax_bf16, q_jax_f32)
+#                                   + YARD_FLOOR
+#
+# with dist the relative L2 distance (for a scalar loss |a - b| / |b|).
+#
+# Why not port bf16 against JAX bf16: each side's bf16 result is the f32
+# result plus its own rounding error e. The two frameworks round at
+# different points inside a conv (accumulation order, when the f32
+# accumulator is rounded), so e_port and e_jax are two draws of one
+# process and |port - jax| = |e_port - e_jax| is about sqrt(2) times
+# either, whatever bound a tiny model gives it. At the reference
+# geometry a CVAE step's e is ~0.14 of the encoder's update on either
+# side (tests/test_torch_port_fullwidth.py; FULLWIDTH_PARITY_TORCH.json),
+# so the JAX-bf16 distance passes a 0.1 bound set at the tiny geometry
+# (tests/test_torch_port_bf16_steps.py) on rounding noise alone, and a
+# port fault as small as the noise could hide in it. Measured from the
+# truth, a fault adds to the port's distance alone.
+#
+# The constants, derived from FULLWIDTH_PARITY_TORCH.json (5 seeds, the
+# six train steps and four serving programs at the reference geometry;
+# two draws of one error process differ in size by their sampling
+# spread, and the port's draw is as often the smaller as the larger):
+#   YARD_RATIO = 1.75 for losses, outputs and whole updates. Over the 55
+#     whole-update rows the port/JAX ratio lies in 0.92-1.05, except the
+#     Discriminator's 1.20 and 1.59: its update flows from its four scores
+#     at B=2, a few-draw quantity. 1.75 holds 1.59 with 10% room.
+#   PARAM_RATIO = 2.5 for single parameters, fewer draws each: over 2637
+#     parameters above the floor (PReLU slopes aside) the ratio has median
+#     0.999, 99th percentile 1.58 and maximum 2.10; over 359 slopes median
+#     0.97, the port's the larger in 47%. The largest port distance over
+#     its reference (below) is 2.35. A dropped gradient (distance 1) stays
+#     past it wherever JAX's own distance is under 0.39.
+#   YARD_FLOOR = BF16_REL: a quantity whose JAX-bf16 distance is near zero
+#     by chance (167 of 170 loss rows read under 0.02) gets the bf16
+#     tolerance of one stage of the suite's op tests.
+#   SPREAD_K = 3: a parameter's reference is the larger of JAX's distance
+#     and SPREAD_K times an expected spread, so that a parameter whose
+#     JAX draw came out small is not held to it. A PReLU slope's gradient
+#     is one sum over a whole activation map, sum(ct * min(x, 0)), which
+#     cancels: its spread is JAX's whole-update distance times kappa, the
+#     L2 norm of the sum's terms over the sum (`SlopeTerms`; the median of
+#     JAX's slope distance over it is 0.68). Any parameter's spread is at
+#     least its `even_share` of JAX's whole-update distance: an update near
+#     zero by the model's structure (a last decoder stage's BN gamma_ri)
+#     carries only its share of the model's error. 3 is three standard
+#     deviations of one draw.
+#
+# Two kinds of quantity are held otherwise, as in
+# tests/test_torch_port_bf16_steps.py: a conv bias feeding a train-mode
+# BN has an update that is zero in exact arithmetic (the BN subtracts the
+# channel's batch mean), so its bf16 update is held to BF16_REL of the
+# model's whole update (its share); and the JAX side's PReLU slope
+# cotangent is summed in float32 (`f32_slope_prelu`), as JAX's own sum of
+# a bf16 array is, because XLA:CPU reduces the transposed broadcast in
+# bf16 and its result then depends on the order of the sum.
+
+YARD_RATIO = 1.75
+PARAM_RATIO = 2.5
+YARD_FLOOR = BF16_REL
+SPREAD_K = 3.0
+
+
+def f32_slope_prelu():
+    """The JAX PReLU with its slope's cotangent summed in float32: the
+    same forward and input cotangent, the same bf16 products ct * x."""
+
+    @jax.custom_vjp
+    def prelu(x, alpha):
+        return jnp.where(x >= 0, x, alpha.astype(x.dtype) * x)
+
+    def fwd(x, alpha):
+        return prelu(x, alpha), (x, alpha)
+
+    def bwd(res, ct):
+        x, alpha = res
+        neg = x < 0
+        ct_x = jnp.where(neg, alpha.astype(x.dtype) * ct, ct)
+        terms = jnp.where(neg, ct * x, jnp.zeros_like(x))
+        return ct_x, jnp.sum(terms.astype(jnp.float32)).astype(alpha.dtype)
+
+    prelu.defvjp(fwd, bwd)
+    return prelu
+
+
+class SeededDraws:
+    """Latent draws for both sides that a jitted JAX step fetches at run
+    time (`jax.pure_callback`), so one compiled step sees the draws of
+    whichever seed `set` chose last. Draws are keyed by shape, the same
+    for every call of one shape (`FixedNoise`): phase 2's JAX step encodes
+    a D-update batch twice, the port once."""
+
+    def __init__(self, seed: int = 0):
+        self.set(seed)
+
+    def set(self, seed: int) -> None:
+        self.noise = FixedNoise(seed)
+
+    def install(self, monkeypatch) -> None:
+        """Route both packages' encoder draws (VAE and NSVAE) here."""
+        from idccrn_vae_tpu.models.reparam import reparameterize as j_rep
+        from idccrn_vae_torch.models.reparam import reparameterize as t_rep
+
+        def jax_fixed(rng, g, num_samples, guard="eps", noise=None):
+            shape = (g.mu_r.shape[0], num_samples, *g.mu_r.shape[1:])
+            e = jax.pure_callback(
+                lambda: np.stack(self.noise(*shape)),
+                jax.ShapeDtypeStruct((2, *shape), jnp.float32))
+            return j_rep(rng, g, num_samples, guard=guard,
+                         noise=(e[0], e[1]))
+
+        def port_fixed(g, num_samples, guard="eps", noise=None,
+                       generator=None):
+            shape = (g.mu_r.shape[0], num_samples, *g.mu_r.shape[1:])
+            er, ei = self.noise(*shape)
+            return t_rep(g, num_samples, guard=guard,
+                         noise=(torch.from_numpy(er), torch.from_numpy(ei)))
+
+        for module in ("vae", "nsvae"):
+            monkeypatch.setattr(f"idccrn_vae_tpu.models.{module}."
+                                "reparameterize", jax_fixed)
+            monkeypatch.setattr(f"idccrn_vae_torch.models.{module}."
+                                "reparameterize", port_fixed)
+
+
+def rel_dist(got, want) -> float:
+    """Relative L2 distance |got - want| / |want| in float64; a scalar's
+    relative error; 0 when both are zero."""
+    got, want = (x.detach().double().cpu().numpy()
+                 if isinstance(x, torch.Tensor) else np.asarray(x, np.float64)
+                 for x in (got, want))
+    err = float(np.linalg.norm(got - want))
+    scale = float(np.linalg.norm(want))
+    return err / scale if scale > 0 else err
+
+
+def bn_fed_bias(name: str) -> bool:
+    """A conv bias ahead of a train-mode BN (zero update in exact
+    arithmetic), as tests/test_torch_port_bf16_steps.py names them."""
+    return name.endswith("bias") and "conv" in name
+
+
+def port_update(module, before) -> dict:
+    """Each parameter's update of a port module after a step, float64."""
+    after = module.state_dict()
+    return {k: (after[k] - before[k]).double()
+            for k, _ in module.named_parameters()}
+
+
+def jax_update(module, before, jax_after, prefix="") -> dict:
+    """Each parameter's update in the JAX variables after a step, in the
+    port module's names and shapes, float64."""
+    want = state_dict_of(jax_after, prefix)
+    shapes = dict(module.state_dict())
+    return {k: (want[k].reshape(shapes[k].shape) - before[k]).double()
+            for k, _ in module.named_parameters()}
+
+
+def slope_kappa(slope_terms, name, update):
+    """A PReLU slope's kappa: the L2 norm of its gradient's terms (in
+    update units, `SlopeTerms`) over its f32 update; None for any other
+    parameter."""
+    if name not in slope_terms:
+        return None
+    return slope_terms[name] / max(float(update.norm()), 1e-30)
+
+
+def even_share(n, n_model, share):
+    """A parameter's even share of its model's error, relative to its own
+    update: sqrt(n / n_model) / share, for a parameter of n of the
+    model's n_model elements whose update is `share` of the model's."""
+    return (n / n_model) ** 0.5 / max(share, 1e-30)
+
+
+def judge_row(r) -> dict:
+    """A yardstick row with its bound and verdict: a BN-fed conv bias's
+    share within BF16_REL; a loss, an output or a whole update within
+    YARD_RATIO times JAX's distance plus YARD_FLOOR; a parameter within
+    PARAM_RATIO times the larger of JAX's distance and SPREAD_K times its
+    expected spread (a PReLU slope's `spread`, its `even` share of JAX's
+    model distance), plus YARD_FLOOR."""
+    if r["kind"] == "bias_share":
+        r["bound"] = BF16_REL
+    else:
+        ref = max(r["jax"], SPREAD_K * (r.get("spread") or 0.0),
+                  SPREAD_K * (r.get("even") or 0.0))
+        ratio = PARAM_RATIO if r["kind"] == "param" else YARD_RATIO
+        r["bound"] = ratio * ref + YARD_FLOOR
+    r["ok"] = bool(r["port"] <= r["bound"])
+    return r
+
+
+def yardstick(port, jax_bf16, jax_f32) -> list:
+    """Rows of the bf16 yardstick for one step or program. Each side is
+    {"losses": {name: float}, "updates": {model: {param: delta}},
+    "outputs": {name: array}} (any part may be missing). A row is
+    {kind, name, port, jax, bound, ok, share, spread, even}: kind "loss",
+    "output", "model" (a whole update), "param", or "bias_share" (a
+    BN-fed conv bias: its bf16 update's share of the model's, bound
+    BF16_REL, "jax" the JAX bf16 share); `share` is a parameter's f32
+    update as a share of its model's; `spread` a PReLU slope's expected
+    distance (JAX's model distance times its kappa); `even` a parameter's
+    even share of JAX's model distance (`even_share`)."""
+    rows = []
+
+    def row(kind, name, d_port, d_jax, share=None, spread=None, even=None):
+        rows.append(judge_row(dict(kind=kind, name=name, port=d_port,
+                                   jax=d_jax, share=share, spread=spread,
+                                   even=even)))
+
+    for part, kind in (("losses", "loss"), ("outputs", "output")):
+        want = jax_f32.get(part, {})
+        assert set(port.get(part, {})) == set(jax_bf16.get(part, {})) \
+            == set(want), part
+        for k in want:
+            row(kind, k, rel_dist(port[part][k], want[k]),
+                rel_dist(jax_bf16[part][k], want[k]))
+    for model, want in jax_f32.get("updates", {}).items():
+        got, ref = port["updates"][model], jax_bf16["updates"][model]
+        assert set(got) == set(ref) == set(want), model
+        cat = lambda d: torch.cat([d[k].flatten() for k in sorted(want)])
+        whole = {s: cat(d) for s, d in (("port", got), ("jax", ref),
+                                        ("f32", want))}
+        model_jax = rel_dist(whole["jax"], whole["f32"])
+        row("model", model, rel_dist(whole["port"], whole["f32"]),
+            model_jax)
+        for k in want:
+            # the parameter's f32 update as a share of the model's
+            f32_share = float(want[k].norm() / whole["f32"].norm())
+            if bn_fed_bias(k):
+                share = lambda d, s: float(d[k].norm() / whole[s].norm())
+                row("bias_share", f"{model}.{k}", share(got, "port"),
+                    share(ref, "jax"), share=f32_share)
+                continue
+            kappa = slope_kappa(jax_f32.get("slope_terms", {}),
+                                f"{model}.{k}", want[k])
+            row("param", f"{model}.{k}", rel_dist(got[k], want[k]),
+                rel_dist(ref[k], want[k]), share=f32_share,
+                spread=None if kappa is None else model_jax * kappa,
+                even=model_jax * even_share(want[k].numel(),
+                                            whole["f32"].numel(), f32_share))
+    return rows
+
+
+def check_yardstick(rows, what=""):
+    """Every row of `yardstick` within its bound; returns the margins: the
+    largest port distance per kind and the largest port/bound ratio."""
+    bad = [r for r in rows if not r["ok"]]
+    assert not bad, (what, bad[:8])
+    out = {}
+    for r in rows:
+        out[r["kind"]] = max(out.get(r["kind"], 0.0), r["port"])
+    out["worst_of_bound"] = max(r["port"] / r["bound"] for r in rows)
+    return out
