@@ -2741,10 +2741,10 @@ TOOL_ARGS = {"bench": ["--iters", "3"],
 
 
 def _shares(report, path: str = ""):
-    """(path, value) of every busy share and MFU in a report."""
+    """(path, value) of every MFU in a report."""
     if isinstance(report, dict):
         for k, v in report.items():
-            if k in ("busy_share", "mfu") or k.startswith("mfu_"):
+            if k == "mfu" or k.startswith("mfu_"):
                 yield f"{path}/{k}", v
             else:
                 yield from _shares(v, f"{path}/{k}")
@@ -2800,7 +2800,6 @@ def phase_tools(device, smi: str, weights, wav, noise, ref) -> None:
                       compute=run["compute"], batch=b["batch"],
                       rtfx=f"{b['rtfx']:.1f}",
                       ms_per_batch=f"{b['ms_per_batch']:.2f}",
-                      busy_share=(b["profile"] or {}).get("busy_share"),
                       peak_gib=b["peak_gib"], card=json.dumps(smi))
         torch.cuda.empty_cache()
         rep = _run_tool("train_bench", root, device)
@@ -2814,8 +2813,7 @@ def phase_tools(device, smi: str, weights, wav, noise, ref) -> None:
         for r in rep["configs"]:
             _line("tools_stream", batch=r["batch"],
                   chunk_frames=r["chunk_frames"], compute=r["compute"],
-                  per_chunk_ms=f"{r['per_chunk_ms']:.3f}",
-                  busy_share=(r["profile"] or {}).get("busy_share"))
+                  per_chunk_ms=f"{r['per_chunk_ms']:.3f}")
         _line("tools_stream", lstm_probe_us=json.dumps(
             rep["lstm_probe_us"]))
         rep = _run_tool("profile_decoder", root, device)

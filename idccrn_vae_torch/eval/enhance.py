@@ -28,6 +28,7 @@ from idccrn_vae_torch.models.vae import VaeDecoder
 from idccrn_vae_torch.ops.stft import istft
 from idccrn_vae_torch.parallel import distributed
 from idccrn_vae_torch.parallel.mesh import padded_rows, shard_batch
+from idccrn_vae_torch.utils.profiling import span
 
 DEFAULT_BUCKET_FRAMES = 100
 OUTTYPES = ("clean_direct", "real_imag_mask", "complex_mask", "phase_mask")
@@ -68,24 +69,25 @@ def combine_outputs(outtype: str, speech_spec: torch.Tensor,
     the JAX package, the 1e-10 of `complex_mask` is added to the real
     part of the complex denominator.
     """
-    s = _sample_mean(speech_spec, num_samples)
-    y = noisy_spec
-    if outtype == "clean_direct" or noise_spec is None:
-        return s
-    n = _sample_mean(noise_spec, num_samples)
-    if outtype == "real_imag_mask":
-        rm = s[..., 0] ** 2 / (s[..., 0] ** 2 + n[..., 0] ** 2 + 1e-10)
-        im = s[..., 1] ** 2 / (s[..., 1] ** 2 + n[..., 1] ** 2 + 1e-10)
-        return torch.stack([rm * y[..., 0], im * y[..., 1]], dim=-1)
-    sc, nc, yc = _complex(s), _complex(n), _complex(y)
-    if outtype == "complex_mask":
-        return _real_imag(sc / (sc + nc + 1e-10) * yc)
-    if outtype == "phase_mask":
-        s_mag, s_ph = sc.abs(), sc.angle()
-        mask = (s_mag / (s_mag + nc.abs() + 1e-10)
-                * torch.cos(s_ph - yc.angle()))
-        return _real_imag(mask * yc.abs() * torch.exp(1j * s_ph))
-    raise ValueError(f"unknown outtype {outtype}")
+    with span("idccrn.mask"):
+        s = _sample_mean(speech_spec, num_samples)
+        y = noisy_spec
+        if outtype == "clean_direct" or noise_spec is None:
+            return s
+        n = _sample_mean(noise_spec, num_samples)
+        if outtype == "real_imag_mask":
+            rm = s[..., 0] ** 2 / (s[..., 0] ** 2 + n[..., 0] ** 2 + 1e-10)
+            im = s[..., 1] ** 2 / (s[..., 1] ** 2 + n[..., 1] ** 2 + 1e-10)
+            return torch.stack([rm * y[..., 0], im * y[..., 1]], dim=-1)
+        sc, nc, yc = _complex(s), _complex(n), _complex(y)
+        if outtype == "complex_mask":
+            return _real_imag(sc / (sc + nc + 1e-10) * yc)
+        if outtype == "phase_mask":
+            s_mag, s_ph = sc.abs(), sc.angle()
+            mask = (s_mag / (s_mag + nc.abs() + 1e-10)
+                    * torch.cos(s_ph - yc.angle()))
+            return _real_imag(mask * yc.abs() * torch.exp(1j * s_ph))
+        raise ValueError(f"unknown outtype {outtype}")
 
 
 class Enhancer:
@@ -105,6 +107,10 @@ class Enhancer:
     sample_chunks: decode num_samples in this many sequential chunks
     instead of one B*S batch — same outputs, peak decoder memory divided
     by sample_chunks.
+
+    counters: host ints, always kept, summed over every batch `_bucketed`
+    has padded: `batches`, `rows`, `real_frames` (each row's
+    len // hop + 1) and `padded_frames` (rows x the bucket's frames).
     """
 
     def __init__(self, enc_cfg: DccrnConfig, dec_cfg: DccrnConfig,
@@ -150,6 +156,8 @@ class Enhancer:
         self.pad_mode = pad_mode
         self.bucket_frames = bucket_frames
         self.sample_chunks = sample_chunks
+        self.counters = dict.fromkeys(
+            ("batches", "rows", "real_frames", "padded_frames"), 0)
 
     def new_generator(self, seed: int = 0) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
@@ -195,7 +203,8 @@ class Enhancer:
                 return _sample_mean(recon, ns)
             est = combine_outputs(self.outtype, pred_s,
                                   noise_spec(out.z_noise, ns), out.stft_x, ns)
-            return istft(est, s.n_fft, s.hop, s.win_length)
+            with span("idccrn.istft"):
+                return istft(est, s.n_fft, s.hop, s.win_length)
         # rows are batch-major, sample-minor: (B*S, ...) -> (B, S, ...);
         # equal chunk sizes, so the mean of chunk means is the full mean
         sc = ns // chunks
@@ -219,7 +228,8 @@ class Enhancer:
         est = combine_outputs(self.outtype, torch.stack(s_parts).mean(dim=0),
                               torch.stack(n_parts).mean(dim=0), out.stft_x,
                               num_samples=1)
-        return istft(est, s.n_fft, s.hop, s.win_length)
+        with span("idccrn.istft"):
+            return istft(est, s.n_fft, s.hop, s.win_length)
 
     def bucket_length(self, n_samples: int) -> int:
         return bucket_pad_length(n_samples, self.enc_cfg.stft.hop,
@@ -228,13 +238,20 @@ class Enhancer:
     def _bucketed(self, wavs: Sequence[np.ndarray], batch_size: int):
         """Sorted by length, batch_size at a time, each batch zero-padded
         to one bucket: yields (indices into wavs, (b, bucket) batch)."""
+        hop = self.enc_cfg.stft.hop
         order = np.argsort([len(w) for w in wavs])
         for i in range(0, len(order), batch_size):
-            chunk = order[i : i + batch_size]
-            bucket = self.bucket_length(max(len(wavs[j]) for j in chunk))
-            batch = np.zeros((len(chunk), bucket), np.float32)
-            for r, j in enumerate(chunk):
-                batch[r, : len(wavs[j])] = wavs[j]
+            with span("idccrn.pad"):
+                chunk = order[i : i + batch_size]
+                bucket = self.bucket_length(max(len(wavs[j]) for j in chunk))
+                batch = np.zeros((len(chunk), bucket), np.float32)
+                for r, j in enumerate(chunk):
+                    batch[r, : len(wavs[j])] = wavs[j]
+                c = self.counters
+                c["batches"] += 1
+                c["rows"] += len(chunk)
+                c["real_frames"] += sum(len(wavs[j]) // hop + 1 for j in chunk)
+                c["padded_frames"] += len(chunk) * (bucket // hop)
             yield chunk, batch
 
     # -- public API --------------------------------------------------------
@@ -246,7 +263,9 @@ class Enhancer:
         group every rank passes the same batch, enhances its rows and
         returns the whole batch's output."""
         generator = self.new_generator() if generator is None else generator
-        wav = torch.as_tensor(wavs, dtype=torch.float32, device=self.device)
+        with span("idccrn.copy_in"):
+            wav = torch.as_tensor(wavs, dtype=torch.float32,
+                                  device=self.device)
         n = distributed.world()
         if n == 1:
             return self.forward(wav, generator)
@@ -296,7 +315,10 @@ class Enhancer:
         generator = self.new_generator() if generator is None else generator
         results: List[Optional[np.ndarray]] = [None] * len(wavs)
         for chunk, batch in self._bucketed(wavs, batch_size):
-            out = self.enhance_batch(batch, generator).cpu().numpy()
+            with span("idccrn.enhance.batch"):
+                out = self.enhance_batch(batch, generator)
+                with span("idccrn.copy_out"):
+                    out = out.cpu().numpy()
             for r, j in enumerate(chunk):
                 results[j] = out[r, : min(len(wavs[j]), out.shape[1])]
         return results  # type: ignore[return-value]

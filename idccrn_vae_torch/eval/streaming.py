@@ -53,6 +53,7 @@ from idccrn_vae_torch.models.vae import (
 )
 from idccrn_vae_torch.ops.conv import complex_conv2d, complex_conv_transpose2d
 from idccrn_vae_torch.ops.stft import _overlap_add, hann_window, ola_envelope
+from idccrn_vae_torch.utils.profiling import span
 
 MODELS = ("nsvae", "supervised")
 
@@ -158,29 +159,31 @@ class StreamingEnhancer:
         tail = n_fft - hop
 
         # 1. frame + STFT: (B, tail + N*hop) -> N frames of n_fft
-        buf = torch.cat([state.pad_tail, chunk], dim=1)
-        frames = buf.unfold(-1, n_fft, hop) * self.window  # (B, N, n_fft)
-        spec = torch.fft.rfft(frames, n=n_fft, dim=-1)
-        stft_x = torch.view_as_real(spec).transpose(1, 2)  # (B, F, N, 2)
-        if self.datanorm is not None:
-            stft_x = apply_datanorm(stft_x, *self.datanorm)
+        with span("idccrn.stft"):
+            buf = torch.cat([state.pad_tail, chunk], dim=1)
+            frames = buf.unfold(-1, n_fft, hop) * self.window  # (B, N, n_fft)
+            spec = torch.fft.rfft(frames, n=n_fft, dim=-1)
+            stft_x = torch.view_as_real(spec).transpose(1, 2)  # (B, F, N, 2)
+            if self.datanorm is not None:
+                stft_x = apply_datanorm(stft_x, *self.datanorm)
 
         # 2. encoder conv stack with carried time columns
-        x = stft_x
-        new_enc_tails, skips = [], []
-        for st, t in zip(self.encoders, state.enc_tails):
-            xin = torch.cat([t, x], dim=2)  # (B, F, 1+N, 2C)
-            new_enc_tails.append(xin[:, :, -1:])
-            c = st.conv
-            x = complex_conv2d(xin, c.conv_re.weight, c.conv_im.weight,
-                               c.conv_re.bias, c.conv_im.bias, cfg.stride,
-                               (cfg.freq_pad, 0), causal=False)
-            x = prelu(st.bn(x), st.prelu.weight)
-            skips.append(x)
-        # double/adapt noisy encoders emit doubled skip channels; the
-        # pretrained-geometry decoder takes the speech half
-        if self.model == "nsvae":
-            skips = split_noisy_skips(skips, cfg, "speech")
+        with span("idccrn.enc"):
+            x = stft_x
+            new_enc_tails, skips = [], []
+            for st, t in zip(self.encoders, state.enc_tails):
+                xin = torch.cat([t, x], dim=2)  # (B, F, 1+N, 2C)
+                new_enc_tails.append(xin[:, :, -1:])
+                c = st.conv
+                x = complex_conv2d(xin, c.conv_re.weight, c.conv_im.weight,
+                                   c.conv_re.bias, c.conv_im.bias, cfg.stride,
+                                   (cfg.freq_pad, 0), causal=False)
+                x = prelu(st.bn(x), st.prelu.weight)
+                skips.append(x)
+            # double/adapt noisy encoders emit doubled skip channels; the
+            # pretrained-geometry decoder takes the speech half
+            if self.model == "nsvae":
+                skips = split_noisy_skips(skips, cfg, "speech")
 
         # 3. LSTM with carried state -> posterior mean, or for the
         # supervised model the bottleneck features themselves
@@ -189,49 +192,52 @@ class StreamingEnhancer:
         if self.model == "supervised":
             z = lstm_out
         else:
-            gauss = (apply_fc_head(lstm_out, self.heads)
-                     if self.heads is not None
-                     else parse_sliced_head(lstm_out, cfg.zdim))
-            z = torch.cat([gauss.mu_r, gauss.mu_i], dim=-1)
+            with span("idccrn.latent"):
+                gauss = (apply_fc_head(lstm_out, self.heads)
+                         if self.heads is not None
+                         else parse_sliced_head(lstm_out, cfg.zdim))
+                z = torch.cat([gauss.mu_r, gauss.mu_i], dim=-1)
 
         # 4. decoder with carried time columns
-        c, f = bottleneck_dims(dcfg)
-        p_map = unflatten_bottleneck(self.dense(z), c, f)
-        nst = dcfg.num_stages
-        new_dec_tails = []
-        for i, (st, t) in enumerate(zip(self.decoders, state.dec_tails)):
-            if dcfg.skip_mode != "none" and i in dcfg.skip_to_use:
-                sk = skips[nst - 1 - i]
-                p_map = cpack_concat(
-                    p_map, torch.zeros_like(sk) if self.zero_skips else sk)
-            xin = torch.cat([t, p_map], dim=2)
-            new_dec_tails.append(xin[:, :, -1:])
-            tc = st.transconv
-            p_map = complex_conv_transpose2d(
-                xin, tc.tconv_re.weight, tc.tconv_im.weight, tc.tconv_re.bias,
-                tc.tconv_im.bias, dcfg.stride, (dcfg.freq_pad, 0),
-                causal=False)
-            # a non-causal tconv on 1+N columns gives 2+N; the stream's
-            # columns are 1..N (column 0 needs the context before the
-            # tail, the last is the causal trim)
-            p_map = prelu(st.bn(p_map[:, :, 1 : n + 1]), st.prelu.weight)
+        with span("idccrn.dec"):
+            c, f = bottleneck_dims(dcfg)
+            p_map = unflatten_bottleneck(self.dense(z), c, f)
+            nst = dcfg.num_stages
+            new_dec_tails = []
+            for i, (st, t) in enumerate(zip(self.decoders, state.dec_tails)):
+                if dcfg.skip_mode != "none" and i in dcfg.skip_to_use:
+                    sk = skips[nst - 1 - i]
+                    p_map = cpack_concat(
+                        p_map, torch.zeros_like(sk) if self.zero_skips else sk)
+                xin = torch.cat([t, p_map], dim=2)
+                new_dec_tails.append(xin[:, :, -1:])
+                tc = st.transconv
+                p_map = complex_conv_transpose2d(
+                    xin, tc.tconv_re.weight, tc.tconv_im.weight,
+                    tc.tconv_re.bias, tc.tconv_im.bias, dcfg.stride,
+                    (dcfg.freq_pad, 0), causal=False)
+                # a non-causal tconv on 1+N columns gives 2+N; the stream's
+                # columns are 1..N (column 0 needs the context before the
+                # tail, the last is the causal trim)
+                p_map = prelu(st.bn(p_map[:, :, 1 : n + 1]), st.prelu.weight)
 
-        # 5. mask / real_imag reconstruction on this chunk's frames
-        est = (mask_reconstruct(p_map, stft_x) if dcfg.recon_type == "mask"
-               else p_map)
-        if self.datanorm is not None:
-            est = undo_datanorm(est, *self.datanorm)
+        with span("idccrn.istft"):
+            # 5. mask / real_imag reconstruction on this chunk's frames
+            est = (mask_reconstruct(p_map, stft_x)
+                   if dcfg.recon_type == "mask" else p_map)
+            if self.datanorm is not None:
+                est = undo_datanorm(est, *self.datanorm)
 
-        # 6. streaming inverse STFT with carried overlap-add tails
-        cplx = torch.view_as_complex(est.contiguous()).transpose(1, 2)
-        oframes = torch.fft.irfft(cplx, n=n_fft, dim=-1) * self.window
-        num = _overlap_add(oframes, hop)  # (B, N*hop + tail)
-        num[:, :tail] += state.ola_num
-        env = ola_envelope(n, n_fft, hop, self.win_length, self.device,
-                            torch.float32).clone()
-        env[:tail] += state.ola_env
-        m = n * hop
-        out = num[:, :m] / env[:m].clamp_min(1e-8)
+            # 6. streaming inverse STFT with carried overlap-add tails
+            cplx = torch.view_as_complex(est.contiguous()).transpose(1, 2)
+            oframes = torch.fft.irfft(cplx, n=n_fft, dim=-1) * self.window
+            num = _overlap_add(oframes, hop)  # (B, N*hop + tail)
+            num[:, :tail] += state.ola_num
+            env = ola_envelope(n, n_fft, hop, self.win_length, self.device,
+                               torch.float32).clone()
+            env[:tail] += state.ola_env
+            m = n * hop
+            out = num[:, :m] / env[:m].clamp_min(1e-8)
         new_state = StreamState(
             pad_tail=buf[:, -tail:], enc_tails=new_enc_tails,
             lstm_state=new_lstm_state, dec_tails=new_dec_tails,
@@ -243,12 +249,14 @@ class StreamingEnhancer:
     def process_chunk(self, state: StreamState, chunk
                       ) -> Tuple[torch.Tensor, StreamState]:
         """chunk (B, chunk_samples) -> (enhanced (B, chunk_samples), state)."""
-        chunk = torch.as_tensor(chunk, dtype=torch.float32,
-                                device=self.device)
-        if chunk.shape[1] != self.chunk_samples:
-            raise ValueError(f"chunk has {chunk.shape[1]} samples, the "
-                             f"stream takes {self.chunk_samples}")
-        return self._chunk_step(state, chunk)
+        with span("idccrn.stream.chunk"):
+            with span("idccrn.copy_in"):
+                chunk = torch.as_tensor(chunk, dtype=torch.float32,
+                                        device=self.device)
+            if chunk.shape[1] != self.chunk_samples:
+                raise ValueError(f"chunk has {chunk.shape[1]} samples, the "
+                                 f"stream takes {self.chunk_samples}")
+            return self._chunk_step(state, chunk)
 
     def stream(self, wav) -> torch.Tensor:
         """Run a full (B, L) signal (numpy or tensor) through chunked calls.

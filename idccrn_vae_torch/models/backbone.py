@@ -18,6 +18,7 @@ from idccrn_vae_torch.models.modules import (
     flatten_bottleneck,
 )
 from idccrn_vae_torch.ops.stft import stft
+from idccrn_vae_torch.utils.profiling import span
 
 
 def apply_backbone(stages: Sequence[EncoderStage], lstm: ComplexLSTM,
@@ -28,10 +29,12 @@ def apply_backbone(stages: Sequence[EncoderStage], lstm: ComplexLSTM,
     stft_x is post-datanorm when datanorm=(mean, std) is given.
     """
     s = cfg.stft
-    stft_x = stft(wav, s.n_fft, s.hop, s.win_length)
-    if datanorm is not None:
-        stft_x = apply_datanorm(stft_x, datanorm[0], datanorm[1])
-    x, skips = apply_encoder_stack(stages, stft_x, cfg)
+    with span("idccrn.stft"):
+        stft_x = stft(wav, s.n_fft, s.hop, s.win_length)
+        if datanorm is not None:
+            stft_x = apply_datanorm(stft_x, datanorm[0], datanorm[1])
+    with span("idccrn.enc"):
+        x, skips = apply_encoder_stack(stages, stft_x, cfg)
     seq = flatten_bottleneck(x)  # (B, T, 2*C*F)
     cdt = None if cfg.compute == "f32" else cfg.compute_dtype
     return lstm(seq, compute_dtype=cdt), skips, stft_x

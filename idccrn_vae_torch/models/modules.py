@@ -39,6 +39,7 @@ from idccrn_vae_torch.ops.batchnorm import (
 from idccrn_vae_torch.ops.conv import complex_conv2d, complex_conv_transpose2d
 from idccrn_vae_torch.ops.dense import complex_dense
 from idccrn_vae_torch.ops.lstm import complex_lstm
+from idccrn_vae_torch.utils.profiling import span
 
 
 def default_generator(generator: Optional[torch.Generator]) -> torch.Generator:
@@ -230,8 +231,9 @@ class ComplexLSTM(nn.Module):
     def forward(self, x, compute_dtype=None, state=None,
                 return_state: bool = False):
         params = {"re": self.lstm_re.layers(), "im": self.lstm_im.layers()}
-        return complex_lstm(x, params, compute_dtype=compute_dtype,
-                            state=state, return_state=return_state)
+        with span("idccrn.lstm"):
+            return complex_lstm(x, params, compute_dtype=compute_dtype,
+                                state=state, return_state=return_state)
 
 
 class ComplexDense(nn.Module):

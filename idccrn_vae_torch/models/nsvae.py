@@ -22,6 +22,7 @@ from idccrn_vae_torch.models.modules import (
 )
 from idccrn_vae_torch.models.reparam import CGauss, reparameterize
 from idccrn_vae_torch.models.vae import HEADS, apply_fc_head, parse_sliced_head
+from idccrn_vae_torch.utils.profiling import span
 
 
 class NsvaeOut(NamedTuple):
@@ -81,19 +82,20 @@ class NsvaeEncoder(nn.Module):
         ns = cfg.num_samples if num_samples is None else num_samples
         lstm_out, skips, stft_x = apply_backbone(
             self.encoders, self.lstms[0], wav, cfg)
-        if cfg.latent == "fc":
-            g_s = apply_fc_head(lstm_out, self._fc_heads("speech"))
-            g_n = (apply_fc_head(lstm_out, self._fc_heads("noise"))
-                   if cfg.latent_num == 2 else None)
-        else:
-            g_s = parse_sliced_head(lstm_out, cfg.zdim, offset=0)
-            g_n = (parse_sliced_head(lstm_out, cfg.zdim, offset=3)
-                   if cfg.latent_num == 2 else None)
-        z_s = reparameterize(g_s, ns, guard=self.guard, noise=noise,
-                             generator=generator)
-        z_n = (reparameterize(g_n, ns, guard=self.guard, noise=noise_n,
-                              generator=generator)
-               if g_n is not None else None)
+        with span("idccrn.latent"):
+            if cfg.latent == "fc":
+                g_s = apply_fc_head(lstm_out, self._fc_heads("speech"))
+                g_n = (apply_fc_head(lstm_out, self._fc_heads("noise"))
+                       if cfg.latent_num == 2 else None)
+            else:
+                g_s = parse_sliced_head(lstm_out, cfg.zdim, offset=0)
+                g_n = (parse_sliced_head(lstm_out, cfg.zdim, offset=3)
+                       if cfg.latent_num == 2 else None)
+            z_s = reparameterize(g_s, ns, guard=self.guard, noise=noise,
+                                 generator=generator)
+            z_n = (reparameterize(g_n, ns, guard=self.guard, noise=noise_n,
+                                  generator=generator)
+                   if g_n is not None else None)
         return NsvaeOut(z_s, g_s, z_n, g_n, skips, stft_x)
 
 

@@ -30,6 +30,7 @@ from idccrn_vae_torch.models.modules import (
 )
 from idccrn_vae_torch.models.reparam import CGauss, reparameterize
 from idccrn_vae_torch.ops.stft import istft, stft
+from idccrn_vae_torch.utils.profiling import span
 
 HEADS = ("mean", "logvar", "delta")
 
@@ -133,13 +134,14 @@ class VaeEncoder(nn.Module):
         ns = cfg.num_samples if num_samples is None else num_samples
         lstm_out, skips, stft_x = apply_backbone(
             self.encoders, self.lstms[0], wav, cfg, datanorm_of(self))
-        if cfg.latent == "fc":
-            gauss = apply_fc_head(
-                lstm_out, {h: getattr(self, f"dense_{h}") for h in HEADS})
-        else:
-            gauss = parse_sliced_head(lstm_out, cfg.zdim)
-        z = reparameterize(gauss, ns, guard=self.guard, noise=noise,
-                           generator=generator)
+        with span("idccrn.latent"):
+            if cfg.latent == "fc":
+                gauss = apply_fc_head(
+                    lstm_out, {h: getattr(self, f"dense_{h}") for h in HEADS})
+            else:
+                gauss = parse_sliced_head(lstm_out, cfg.zdim)
+            z = reparameterize(gauss, ns, guard=self.guard, noise=noise,
+                               generator=generator)
         return EncoderOut(z, gauss, skips, stft_x)
 
 
@@ -192,13 +194,14 @@ class VaeDecoder(nn.Module):
             skip_coin = torch.as_tensor(skip_coin, device=z.device)
         else:
             skip_coin = None
-        dense_out = self.dense(
-            z, compute_dtype=None if cfg.compute == "f32"
-            else cfg.compute_dtype)  # (B*S, T, 2*C*F) float32
-        p = unflatten_bottleneck(dense_out, c, f)
-        out = apply_decoder_stack(self.decoders, p, skips, cfg,
-                                  num_samples=ns, pad_mode=pad_mode,
-                                  skip_coin=skip_coin)
+        with span("idccrn.dec"):
+            dense_out = self.dense(
+                z, compute_dtype=None if cfg.compute == "f32"
+                else cfg.compute_dtype)  # (B*S, T, 2*C*F) float32
+            p = unflatten_bottleneck(dense_out, c, f)
+            out = apply_decoder_stack(self.decoders, p, skips, cfg,
+                                      num_samples=ns, pad_mode=pad_mode,
+                                      skip_coin=skip_coin)
         return finish_reconstruction(out, stft_x, cfg, ns, datanorm_of(self))
 
 
@@ -209,15 +212,16 @@ def finish_reconstruction(out: torch.Tensor, stft_x: torch.Tensor,
     out: decoder output (B*S, F, T, 2); stft_x: (B, F, T, 2).
     """
     s = cfg.stft
-    out = out.float()  # leave reduced precision at the edge
-    if cfg.recon_type == "mask":
-        tiled = stft_x.repeat_interleave(num_samples, dim=0)
-        predict = mask_reconstruct(out, tiled)
-    else:  # 'real_imag'
-        predict = out
-    if datanorm is not None:
-        predict = undo_datanorm(predict, datanorm[0], datanorm[1])
-    recon_sig = istft(predict, s.n_fft, s.hop, s.win_length)
-    if cfg.resynthesis:
-        predict = stft(recon_sig, s.n_fft, s.hop, s.win_length)
+    with span("idccrn.istft"):
+        out = out.float()  # leave reduced precision at the edge
+        if cfg.recon_type == "mask":
+            tiled = stft_x.repeat_interleave(num_samples, dim=0)
+            predict = mask_reconstruct(out, tiled)
+        else:  # 'real_imag'
+            predict = out
+        if datanorm is not None:
+            predict = undo_datanorm(predict, datanorm[0], datanorm[1])
+        recon_sig = istft(predict, s.n_fft, s.hop, s.win_length)
+        if cfg.resynthesis:
+            predict = stft(recon_sig, s.n_fft, s.hop, s.win_length)
     return recon_sig, predict

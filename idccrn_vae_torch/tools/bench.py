@@ -17,14 +17,13 @@ from one generator), closed by a scalar fetch. RTFx = iterations x batch
 x 3 s / window seconds. The JAX bench runs its window as one
 `lax.fori_loop` dispatch; here it is an eager chain of launches from the
 host, so at B=32, where launches are short, the window measures the host
-as much as the card. Each batch's record carries the device busy share
-of one iteration (torch.profiler) beside its RTFx.
+as much as the card.
 
 Output: per run (program, compute) bench.py's line, {"metric":
 "enhance_rtfx_per_chip", "value": the best batch's RTFx, "unit":
 "x_realtime", "vs_baseline": value / 300, ...}, printed to stdout; the
 file --out holds every run with per-batch RTFx, ms per batch, peak
-memory and busy share, and the card record. bench.py's TPU probe, retry
+memory, and the card record. bench.py's TPU probe, retry
 loop and watchdog are not ported (TPU machinery).
 
   python -m idccrn_vae_torch.tools.bench [--runs clean_direct:bf16,...]
@@ -140,7 +139,6 @@ def measure(enhance: Callable, batch: int, seconds: float, iters: int,
     rec = {"batch": batch, "rtfx": batch * seconds / dt,
            "ms_per_batch": 1e3 * dt, "peak_gib": common.peak_gib(device),
            "out_shape": list(carry["out"].shape)}
-    rec["profile"] = common.busy_share(step, device)
     return rec
 
 

@@ -6,8 +6,8 @@ scalar `.item()` of the last result, which waits for every launch the
 window queued (the counterpart of the JAX tools' scalar fetch). The
 programs are eager PyTorch: each call is a chain of launches from the
 host, so where the launches are short the window measures the host as
-much as the card, and the tools record the device's busy share of one
-window (`busy_share`) beside the time.
+much as the card. Where the card sits idle is read from a profiler trace
+of the program's spans (`utils/profiling.py`, `benchmark/spans.py`).
 
 Peaks: the dense rates of the NVIDIA H100 SXM5 ("NVIDIA H100 80GB
 HBM3", 700 W), from NVIDIA's H100 Tensor Core GPU data sheet, without
@@ -115,29 +115,6 @@ def peak_for(compute: str) -> tuple:
     if torch.backends.cudnn.allow_tf32:
         return PEAK_TFLOPS["tf32"], "tf32 dense"
     return PEAK_TFLOPS["fp32"], "fp32"
-
-
-def busy_share(run: Callable, device: torch.device) -> Optional[dict]:
-    """torch.profiler over one call of `run` (warm), closed by a
-    synchronize: wall ms, device-busy ms, their ratio and the device
-    ops. None on the CPU."""
-    if device.type != "cuda":
-        return None
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize(device)
-        wall = time.perf_counter() - t0
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in dev)
-    return {"wall_ms": 1e3 * wall, "device_busy_ms": busy_us / 1e3,
-            "busy_share": busy_us / 1e6 / wall,
-            "device_ops": sum(e.count for e in dev)}
 
 
 def finite(obj, path: str = "") -> None:

@@ -151,7 +151,6 @@ def profile(device, tiny: bool = False, steps=None) -> dict:
               "probes": "not ported: the JAX tool's scan unroll and buffer "
                         "donation probes are XLA knobs with no eager "
                         "counterpart"}
-    report["full_step_profile"] = common.busy_share(full_step, device)
     print(json.dumps({k: report[k] for k in ("programs", "derived")},
                      indent=1), flush=True)
 

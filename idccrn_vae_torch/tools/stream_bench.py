@@ -11,8 +11,7 @@ fetch; per_chunk_ms is the best window over its chunks. realtime_margin
 = chunk duration / per_chunk_ms, streams_realtime = batch x that margin.
 The JAX tool chains its chunks in one `lax.fori_loop` dispatch; here each
 chunk is an eager chain of launches (about 920 at 10 frames, PERF.md §5),
-so the host sets the pace: each record carries the device busy share of
-one chunk (torch.profiler).
+so the host sets the pace.
 
 The LSTM probe times the bare 2-layer 1280 -> 128 complex LSTM of the
 port (`ops/lstm.complex_lstm`, bf16) at B=1 and T = 1 and 10 frames:
@@ -93,8 +92,7 @@ def bench_chunk_step(cfg: DccrnConfig, batch: int, chunk_frames: int,
             "chunk_ms": chunk_ms, "per_chunk_ms": per_chunk_ms,
             "realtime_margin": chunk_ms / per_chunk_ms,
             "streams_realtime": batch * chunk_ms / per_chunk_ms,
-            "walls_s": walls, "compute": cfg.compute,
-            "profile": common.busy_share(run, device)}
+            "walls_s": walls, "compute": cfg.compute}
 
 
 def lstm_params(device, seed: int = 0):

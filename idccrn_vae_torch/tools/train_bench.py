@@ -11,10 +11,9 @@ optimizers' updates on a batch that lives on the card; 2 warm steps,
 then a window of 8 steps closed by a scalar fetch of the last loss.
 `audio_s_per_s` = batch x 3 s / step time (:129-131). A configuration
 that does not fit records status 'oom' (torch.cuda.OutOfMemoryError
-only; every other exception propagates). With --profile each record
-carries the device busy share of one step (torch.profiler).
+only; every other exception propagates).
 
-  python -m idccrn_vae_torch.tools.train_bench [--steps 8] [--profile]
+  python -m idccrn_vae_torch.tools.train_bench [--steps 8]
       [--only 0,3] [--tiny --device cpu]
 
 writes TRAIN_BENCH_TORCH.json (or --out) with the card record.
@@ -102,7 +101,7 @@ def make_batch(kind: str, b: int, n: int, device, seed: int = 0):
     return wavs if len(wavs) > 1 else wavs[0]
 
 
-def time_steps(trainer, batch, steps: int, device, profile: bool) -> dict:
+def time_steps(trainer, batch, steps: int, device) -> dict:
     """2 warm steps, then `steps` timed ones; status 'oom' when the card
     runs out of memory."""
     gen = torch.Generator(device).manual_seed(0)
@@ -114,15 +113,12 @@ def time_steps(trainer, batch, steps: int, device, profile: bool) -> dict:
         rec = {"status": "ok", "step_ms": 1e3 * dt,
                "loss": float(metrics["total"]),
                "peak_gib": common.peak_gib(device)}
-        if profile:
-            rec["profile"] = common.busy_share(step, device)
         return rec
     except torch.cuda.OutOfMemoryError as e:
         return {"status": "oom", "detail": str(e)[:200]}
 
 
-def bench(kind, b, compute, remat, geo, n, seconds, steps, device,
-          profile) -> dict:
+def bench(kind, b, compute, remat, geo, n, seconds, steps, device) -> dict:
     rec = {"trainer": kind, "batch": b, "compute": compute}
     if kind == "pretrain":
         rec.update(remat=remat, num_samples=5)
@@ -130,7 +126,7 @@ def bench(kind, b, compute, remat, geo, n, seconds, steps, device,
     try:
         trainer = make_trainer(kind, compute, remat, geo, device)
         batch = make_batch(kind, b, n, device)
-        rec.update(time_steps(trainer, batch, steps, device, profile))
+        rec.update(time_steps(trainer, batch, steps, device))
     except torch.cuda.OutOfMemoryError as e:
         rec.update(status="oom", detail=str(e)[:200])
     finally:
@@ -149,9 +145,6 @@ def main(argv=None) -> dict:
                    help=f"timed steps per configuration (default {STEPS})")
     p.add_argument("--only", default=None,
                    help="comma list of configuration indices")
-    p.add_argument("--profile", action="store_true",
-                   help="record the busy share of one step per "
-                        "configuration")
     args = p.parse_args(argv)
     device = common.device_of(args)
     geo = common.geometry(args.tiny)
@@ -171,8 +164,7 @@ def main(argv=None) -> dict:
         kind, b, compute, remat = CONFIGS[i]
         if args.tiny:
             b = 2
-        rec = bench(kind, b, compute, remat, geo, n, seconds, steps, device,
-                    args.profile)
+        rec = bench(kind, b, compute, remat, geo, n, seconds, steps, device)
         report["results"].append(rec)
         print(json.dumps(rec), flush=True)
     common.write_report(args.out, report)

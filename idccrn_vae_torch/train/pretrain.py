@@ -21,6 +21,7 @@ from idccrn_vae_torch.models.vae import VaeDecoder, VaeEncoder
 from idccrn_vae_torch.train.checkpoint import datanorm_to_meta
 from idccrn_vae_torch.train.loop import Trainer
 from idccrn_vae_torch.train.optim import PlateauScheduler, make_adam
+from idccrn_vae_torch.utils.profiling import span
 
 
 def tile_samples(x: torch.Tensor, num_samples: int) -> torch.Tensor:
@@ -106,20 +107,25 @@ class PretrainTrainer(Trainer):
         parameter's gradient in `.grad`. skip_coin injects skip_mode
         'prob''s coin (see `VaeDecoder.forward`), noise the latent draws
         (see `VaeEncoder.forward`)."""
-        wav = self.batch_to_device(batch)
-        self.encoder.train()
-        self.decoder.train()
-        total, metrics = self._losses(wav, generator,
-                                      self.loss.kl_weight_at(epoch),
-                                      skip_coin, noise)
-        self.opt_en.zero_grad(set_to_none=True)
-        self.opt_de.zero_grad(set_to_none=True)
-        total.backward()
-        self.reduce_gradients(self.opt_en)
-        self.reduce_gradients(self.opt_de)
-        self.opt_en.step()
-        self.opt_de.step()
-        return metrics
+        with span("idccrn.train.step"):
+            with span("idccrn.copy_in"):
+                wav = self.batch_to_device(batch)
+            self.encoder.train()
+            self.decoder.train()
+            with span("idccrn.train.forward"):
+                total, metrics = self._losses(wav, generator,
+                                              self.loss.kl_weight_at(epoch),
+                                              skip_coin, noise)
+            self.opt_en.zero_grad(set_to_none=True)
+            self.opt_de.zero_grad(set_to_none=True)
+            with span("idccrn.train.backward"):
+                total.backward()
+            with span("idccrn.train.optimizer"):
+                self.reduce_gradients(self.opt_en)
+                self.reduce_gradients(self.opt_de)
+                self.opt_en.step()
+                self.opt_de.step()
+            return metrics
 
     @torch.no_grad()
     def eval_step(self, batch, generator: Optional[torch.Generator],

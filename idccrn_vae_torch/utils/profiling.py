@@ -1,9 +1,16 @@
-"""Profiling, step timing and memory observability.
+"""Profiling, named spans, step timing and memory observability.
 
-Mirrors `idccrn_vae_tpu/utils/profiling.py`:
+Mirrors `idccrn_vae_tpu/utils/profiling.py`, and adds the port's spans:
 
   * `trace(log_dir)`: a context manager over `torch.profiler` that
     writes a Chrome trace (chrome://tracing, Perfetto) into `log_dir`.
+    An operator traces a run with `with profiling.trace(dir): ...`
+    around the calls to look at; the trace shows the CUDA kernels under
+    the program's spans, which `SPANS` names.
+  * `span(name)`: a named region of the program (a `SPANS` key). While
+    a profiler records, it is a record function, so the span lands in
+    the same trace as the kernels and on their clock; otherwise it is
+    one shared no-op context and costs a check of the profiler's flag.
   * `StepTimer`: wall time per step, waiting for the card on a probe
     value; the mean, median, p95 and total.
   * `log_memory`: the host's peak RSS and, per visible card, the bytes
@@ -25,6 +32,53 @@ import numpy as np
 import torch
 
 _TRACE_IDS = itertools.count()
+
+# Every span of the program and what it covers. The entry spans
+# (`idccrn.enhance.batch`, `idccrn.stream.chunk`, `idccrn.train.step`)
+# are one item each of their path; a span's parent is the innermost span
+# open around it on the same thread.
+SPANS = {
+    "idccrn.enhance.batch": "one batch of Enhancer.enhance_utterances: "
+                            "enhance_batch and the copy-out",
+    "idccrn.pad": "host bucketing and zero-padding of one batch",
+    "idccrn.copy_in": "host -> device copy of a batch or a chunk",
+    "idccrn.copy_out": "device -> host copy of a batch's answers, with "
+                       "the host's wait for the card",
+    "idccrn.stft": "framing and STFT",
+    "idccrn.enc": "the encoder's conv / BN / PReLU stack",
+    "idccrn.lstm": "the complex LSTM, every layer's whole recurrence",
+    "idccrn.latent": "the latent heads and the sampling (or z = mu)",
+    "idccrn.dec": "the decoder's dense layer and transposed-conv stack",
+    "idccrn.istft": "reconstruction (mask or real_imag, datanorm undo) "
+                    "and the inverse STFT",
+    "idccrn.mask": "the sample mean and the out-type's mask",
+    "idccrn.stream.chunk": "one StreamingEnhancer.process_chunk call",
+    "idccrn.train.step": "one PretrainTrainer.train_step",
+    "idccrn.train.forward": "a train step's forward and loss",
+    "idccrn.train.backward": "a train step's backward",
+    "idccrn.train.optimizer": "a train step's gradient reduction and "
+                              "Adam updates",
+}
+
+_NO_SPAN = contextlib.nullcontext()
+_profiler_on = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """`with span("idccrn.lstm"): ...`: the region as a record function
+    while a profiler records, else a shared no-op.
+
+    The record function is the one torch's compiled code opens around
+    its graphs (`_RecordFunctionFast`): a `cpu_op` event on the thread
+    that opens it. `torch.profiler.record_function` would make a user
+    annotation, of which the profiler also puts a copy on the device's
+    timeline, spanning the span's kernels and the gaps between them,
+    so that a trace would read the card as busy through every span.
+    Under torch.compile or a strict torch.export, which cannot trace that
+    object, a span is the no-op too."""
+    if not _profiler_on() or torch.compiler.is_compiling():
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 def sync(device: torch.device) -> None:

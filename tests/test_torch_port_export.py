@@ -90,6 +90,19 @@ def test_nsvae_artifact_matches_eager(nsvae_artifact):
     assert torch.equal(got, want)
 
 
+def test_artifacts_hold_no_profiler_op(nsvae_artifact):
+    """The program's spans (`utils/profiling.span`) leave no profiler op
+    in an exported graph: the archives' serialized graphs name aten ops
+    and no profiler op."""
+    import zipfile
+
+    out_dir = nsvae_artifact[0]
+    for name in ("enhance_160.pt2", "enhance_320.pt2"):
+        with zipfile.ZipFile(os.path.join(out_dir, name)) as z:
+            blob = b"".join(z.read(m) for m in z.namelist())
+        assert b"aten.conv2d" in blob and b"profiler" not in blob
+
+
 def test_one_artifact_serves_two_batch_sizes(nsvae_artifact):
     _, live, call, _ = nsvae_artifact
     eager = _eager(live)

@@ -99,6 +99,9 @@ def test_streaming_artifact_matches_streamer_and_jax(tmp_path):
     streamer = StreamingEnhancer(tc, tc, te, td, chunk_frames=4,
                                  device="cpu")
     exported, spec = texport.export_streaming(streamer, batch=2)
+    # the chunk step's spans (utils/profiling.span) leave no profiler op
+    assert not [n for n in exported.graph.nodes if n.op == "call_function"
+                and "profiler" in str(n.target)]
     texport.save_streaming_artifact(str(tmp_path), exported, spec, "cpu",
                                     {"chunk_samples":
                                      streamer.chunk_samples})

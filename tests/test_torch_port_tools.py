@@ -218,7 +218,7 @@ def test_train_bench_records_oom(monkeypatch):
         torch.cuda.OutOfMemoryError("CUDA out of memory (injected)")))
     rec = train_bench.bench("pretrain", 2, "f32", False,
                             common.geometry(True), 1600, 0.1, 1,
-                            torch.device("cpu"), False)
+                            torch.device("cpu"))
     assert rec["status"] == "oom" and "injected" in rec["detail"]
     assert "step_ms" not in rec and "audio_s_per_s" not in rec
 
@@ -230,7 +230,7 @@ def test_train_bench_lets_other_errors_through(monkeypatch):
                         _failing(ValueError("not an OOM")))
     with pytest.raises(ValueError, match="not an OOM"):
         train_bench.bench("pretrain", 2, "f32", False, common.geometry(True),
-                          1600, 0.1, 1, torch.device("cpu"), False)
+                          1600, 0.1, 1, torch.device("cpu"))
 
 
 def test_train_bench_configs_are_the_jax_tools():
