@@ -6,16 +6,12 @@ fault. One process runs every seed of a side; each seed runs a
 short window of the cell's own traffic and compares as many answers as
 a run does.
 
-Sides:
-  program      the cell as it runs
-  int8_enc     eval cells' control: the program's own int8 serving path
-  int8_all     (quant_scope 'enc' and 'all')
-  bf16         the training cell's control: the trainer at bf16; the
-               stream cell's: the plain reference with bf16 operands in
-               the program's place
-  half_batch   a training fault: each step on half of its batch and
-               draws, the loss's mean taken over the rest (a state left
-               unchanged reads 1 and needs no run)
+Sides: `program`, the cell as it runs, and those of the cell's traffic
+module, `SIDES` (side name -> function of the Run giving an Outcome),
+whose `CONTROL` names the control: for eval cells the program's own
+int8 serving path (`int8_enc`, `int8_all`), for the training cell the
+trainer at bf16 (`bf16`) and a fault (`half_batch`), for the stream the
+plain reference at bf16 operands in the program's place (`bf16`).
 
   python3 benchmark/calibrate.py --workload <cell> --side program
       --seeds 11,12,13 [--seconds 2] [--out readings.jsonl]
@@ -26,7 +22,6 @@ prints one JSON line per seed: {"cell", "side", "seed", "checks"}.
 from __future__ import annotations
 
 import argparse
-import functools
 import importlib
 import json
 import math
@@ -40,61 +35,26 @@ if __name__ == "__main__":
 
 import torch  # noqa: E402
 
-from benchmark import harness, programs  # noqa: E402
+from benchmark import harness  # noqa: E402
 
 
-class HalfBatch:
-    """A trainer whose steps see half of their batch and draws."""
-
-    def __init__(self, trainer):
-        self.inner = trainer
-
-    def __getattr__(self, name):
-        return getattr(self.inner, name)
-
-    def train_step(self, batch, generator, epoch, noise=None):
-        h = len(batch) // 2
-        return self.inner.train_step(batch[:h], generator, epoch,
-                                     noise=tuple(e[:h] for e in noise))
-
-
-def build_for(kind: str, side: str):
-    """The `build` that the traffic module `kind`'s run() takes for
-    `side`."""
-    base = {"eval_utterances": programs.enhancer,
-            "train_step": programs.trainer,
-            "stream_paced": programs.streamer}[kind]
-    if side == "program":
-        return base
-    if side in ("int8_enc", "int8_all"):
-        return functools.partial(base, compute="int8",
-                                 quant_scope=side.split("_")[1])
-    if side == "bf16" and kind == "train_step":
-        return functools.partial(base, compute="bf16")
-    if side == "half_batch":
-        return lambda *a, **k: HalfBatch(base(*a, **k))
-    raise ValueError(f"unknown side {side!r}")
-
-
-def stream_bf16_gap(run: harness.Run) -> dict:
-    """The stream control's chunk_gap: the reference at bf16 operands
-    against the reference at float32, on the audio of a run."""
-    from benchmark import inputs
-    from benchmark.reference import model as ref
-    from benchmark.traffic.stream_paced import chunk_gap, reference_stream
-
-    config, mix, dev = run.config, run.mix, run.device
-    hop = config["stft"]["hop"]
-    m = mix["chunk_frames"] * hop
-    period = m / config["stft"]["fs"]
-    n = max(1, round(run.seconds / period))
-    weights = inputs.make_weights(programs.layouts(config, "stream"),
-                                  run.seed, dev)
-    audio = inputs.stream_audio(n * period, run.seed, config["stft"]["fs"])
-    want = reference_stream(audio, weights, config, dev)
-    got = reference_stream(audio, weights, config, dev, ref.BF16)
-    return {"chunk_gap": chunk_gap(got, want, m,
-                                   config["stft"]["n_fft"] - hop)}
+def readings(cell: str, side: str, seed: int, seconds: float,
+             device: torch.device) -> harness.Outcome:
+    """The Outcome of one seed of `side` in `cell`, its limits infinite
+    (nothing is judged here)."""
+    bench = harness.load_json(harness.ROOT, "BENCHMARK.json")
+    entry = next(w for w in bench["workloads"] if w["name"] == cell)
+    here = os.path.join(harness.ROOT, "benchmark")
+    config = harness.load_json(here, "configs", f"{entry['config']}.json")
+    mix = harness.load_json(here, "traffic", f"{entry['traffic']}.json")
+    traffic = importlib.import_module(f"benchmark.traffic.{mix['kind']}")
+    inf = {k: math.inf for k in harness.load_json(
+        here, "workloads", f"{cell}.json")["limits"]}
+    run = harness.Run(cell, config, mix, inf, seed, seconds, False, device,
+                      time.perf_counter())
+    out = (traffic.run if side == "program" else traffic.SIDES[side])(run)
+    run.free()
+    return out
 
 
 def main(argv=None) -> None:
@@ -109,34 +69,19 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     torch.set_num_threads(2)
-    device = torch.device("cuda", 0)
-    bench = harness.load_json(harness.ROOT, "BENCHMARK.json")
-    entry = next(w for w in bench["workloads"] if w["name"] == args.workload)
-    here = os.path.join(harness.ROOT, "benchmark")
-    config = harness.load_json(here, "configs", f"{entry['config']}.json")
-    mix = harness.load_json(here, "traffic", f"{entry['traffic']}.json")
-    traffic = importlib.import_module(f"benchmark.traffic.{mix['kind']}")
-    inf = {k: math.inf for k in harness.load_json(
-        here, "workloads", f"{args.workload}.json")["limits"]}
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
-        run = harness.Run(args.workload, config, mix, inf, seed, args.seconds,
-                          False, device, t0)
-        notes = {}
-        if mix["kind"] == "stream_paced" and args.side == "bf16":
-            checks = stream_bf16_gap(run)
-        else:
-            out = traffic.run(run, build=build_for(mix["kind"], args.side))
-            checks = {k: v for k, (v, _) in out.checks.items()}
-            notes = out.notes
+        out = readings(args.workload, args.side, seed, args.seconds,
+                       torch.device("cuda", 0))
         line = json.dumps({"cell": args.workload, "side": args.side,
-                           "seed": seed, "checks": checks, "notes": notes,
+                           "seed": seed, "checks": {
+                               k: v for k, (v, _) in out.checks.items()},
+                           "notes": out.notes,
                            "seconds": time.perf_counter() - t0})
         print(line, flush=True)
         if args.out:
             with open(args.out, "a") as f:
                 f.write(line + "\n")
-        run.free()
 
 
 if __name__ == "__main__":

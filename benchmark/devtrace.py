@@ -1,10 +1,10 @@
 """A profiler trace of a stretch of the run, reduced to what the
 per-layer metrics read.
 
-`traced(fn)` runs fn under torch.profiler (CPU and CUDA activities)
-inside the user annotation "bench.stretch", closed by a synchronize, and
-reads the profiler's raw events (`kineto_results.events()`), without
-torch's slower tree of FunctionEvents.
+`spans.traced(fn)` runs fn under torch.profiler (CPU and CUDA
+activities) inside the user annotation "bench.stretch", closed by a
+synchronize, and hands the profiler's raw events to `summarize` here
+and to the reduction by span.
 
 From the raw events:
   device ops   kernels, memcpys and memsets (every device-side event but
@@ -25,9 +25,7 @@ from __future__ import annotations
 import bisect
 import collections
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
-
-import torch
+from typing import Dict, List, Optional, Tuple
 
 STRETCH = "bench.stretch"
 MARK = "bench.mark"
@@ -62,21 +60,6 @@ class Summary:
             d.items(), key=lambda kv: -kv[1])[:top]]
         return {"device_ops": rank(self.kernel_s),
                 "idle_gaps": rank(self.gap_s)}
-
-
-def traced(fn: Callable, device: torch.device):
-    """(fn(), Summary of the stretch)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        with record_function(STRETCH):
-            result = fn()
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-    return result, summarize(prof.profiler.kineto_results.events())
 
 
 def mark():

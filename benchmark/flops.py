@@ -78,20 +78,27 @@ def decoder_macs(geo: Geometry, rows: int, skip_rows: int, t: int,
     return total
 
 
+def serve_decoder_flops(config: dict, batch: int, frames: int,
+                        num_samples: int, tconv: str = "useful") -> float:
+    """FLOPs of every decoder the out-type runs in one enhancement
+    forward of (batch, frames)."""
+    decoders = 1 if config["serve"]["outtype"] == "clean_direct" else 2
+    return 2.0 * decoders * decoder_macs(Geometry.of(config),
+                                         batch * num_samples, batch, frames,
+                                         tconv)
+
+
 def serve_flops(config: dict, batch: int, frames: int, num_samples: int,
                 tconv: str = "useful") -> float:
     """FLOPs of one enhancement forward of (batch, frames): the encoder
     and every decoder the out-type runs."""
     geo = Geometry.of(config)
-    m, s = config["model"], config["serve"]
+    m = config["model"]
     double = m["channel_mode"] == "double"
-    latents = m["latent_num"]
     macs = _conv(geo, batch, frames, double)[0]
-    macs += _lstm(geo, batch, frames, double, latents)
-    decoders = 1 if s["outtype"] == "clean_direct" else 2
-    macs += decoders * decoder_macs(geo, batch * num_samples, batch, frames,
-                                    tconv)
-    return 2.0 * macs
+    macs += _lstm(geo, batch, frames, double, m["latent_num"])
+    return 2.0 * macs + serve_decoder_flops(config, batch, frames,
+                                            num_samples, tconv)
 
 
 def train_forward_macs(config: dict, batch: int, frames: int,

@@ -7,9 +7,13 @@ A cell `<config>.<traffic>` joins
   traffic/<kind>.py           the code that builds the program, warms it
                               up, runs the window and checks the answers
   workloads/<cell>.json       the cell's limits of the compared numbers
+  tests/tiny/<config>.json    the CPU tests' width of the configuration
+  tests/small/<traffic>.json  the CPU tests' size of the mix
+  tests/faults/<kind>.py      the faults a run of the kind can have
 and its metrics are the entries of BENCHMARK.json that list it; each
 per-layer metric is read by metrics/<metric>.py from the run's facts.
-A later cell, mix or metric is a new file, found by its name.
+A later cell, mix, kind, configuration or metric is new files, found by
+their names, and entries added to BENCHMARK.json's lists.
 
 A run: set-up (counted from the process's start to the window's
 opening), the window (`--seconds` of work, the end-to-end metrics),
@@ -37,7 +41,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from benchmark import compare, devtrace
+from benchmark import compare, devtrace, spans
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -67,7 +71,10 @@ def load_json(*parts) -> dict:
 
 @dataclasses.dataclass
 class Facts:
-    """What a run measured, for the per-layer readers."""
+    """What a run measured, for the per-layer readers. The traced
+    stretch gives `trace` (by kernel and launching op), `spans` (by the
+    program's spans) and `counters` (the change in the registered
+    program's counters over it); `trace_work` is the work it did."""
 
     kind: str
     work: Dict[str, float] = dataclasses.field(default_factory=dict)
@@ -77,6 +84,8 @@ class Facts:
     window_peak_bytes: int = 0
     latencies_ms: list = dataclasses.field(default_factory=list)
     trace: Optional[devtrace.Summary] = None
+    spans: Optional[spans.SpanSummary] = None
+    counters: Dict[str, float] = dataclasses.field(default_factory=dict)
     trace_work: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
@@ -91,7 +100,9 @@ class Outcome:
 
 
 class Run:
-    """One run's settings and clocks, handed to the cell's traffic module."""
+    """One run's settings and clocks, handed to the cell's traffic module.
+    The module sets `program` to the system under test where that keeps
+    `counters` (a dict of numbers), so that a traced stretch reads them."""
 
     def __init__(self, cell: str, config: dict, mix: dict, limits: dict,
                  seed: int, seconds: float, trace: bool,
@@ -101,6 +112,8 @@ class Run:
         self.device, self.t0 = device, t0
         self.setup_s = self.window_s = None
         self.setup_peak = self.window_peak = 0
+        self.program = self.spans = None
+        self.counters = {}
         self._opened = None
 
     def sync(self) -> None:
@@ -126,8 +139,15 @@ class Run:
             self.window_peak = torch.cuda.max_memory_allocated(self.device)
 
     def traced(self, fn: Callable):
-        """(fn(), Summary) of a traced stretch after the window."""
-        return devtrace.traced(fn, self.device)
+        """(fn(), devtrace.Summary) of a traced stretch after the window;
+        keeps the same profile's reduction by span in `spans` and the
+        change in the program's counters over the stretch in
+        `counters`."""
+        before = dict(getattr(self.program, "counters", {}))
+        result, summary, self.spans = spans.traced(fn, self.device)
+        after = getattr(self.program, "counters", {})
+        self.counters = {k: v - before.get(k, 0) for k, v in after.items()}
+        return result, summary
 
     def free(self) -> None:
         """Return the program's memory before the reference runs."""
@@ -203,7 +223,13 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     traffic = importlib.import_module(f"benchmark.traffic.{mix['kind']}")
     run = Run(cell, config, mix, limits, seed, seconds, trace, device, t0)
     out: Outcome = traffic.run(run)
-    for key, value in out.notes.items():
+    out.facts.spans, out.facts.counters = run.spans, run.counters
+    notes = dict(out.notes)
+    if run.spans is not None:
+        notes["spans"] = run.spans.note()
+    if run.counters:
+        notes["counters"] = run.counters
+    for key, value in notes.items():
         print(f"note {key} {value!r}", file=sys.stderr)
     e2e, layer = cell_metrics(bench, cell)
     metrics = {}

@@ -1,0 +1,10 @@
+"""Wall milliseconds of the train step's optimizer span
+(idccrn.train.optimizer: Adam over both models) per step, over the traced steps."""
+
+
+def read(facts):
+    sp = facts.spans
+    if facts.kind != "train_step" or sp is None:
+        return None
+    wall = sp.wall_s.get("idccrn.train.optimizer")
+    return 1e3 * wall / facts.trace_work["steps"] if wall else None

@@ -27,38 +27,23 @@ raw events as the kernels, on their clock, as CPU ops. From those events:
 So device_s sums to the stretch's device time and idle_s to its wall
 less its busy time.
 
-Run one cell with its traced stretch reduced this way:
-
-  python3 benchmark/spans.py --workload <cell> --seed <n> --seconds <s>
-
-from the root of a checkout, on a CUDA card: the cell runs as
-`benchmark/run.py --trace 1` runs it, and one JSON line gives the
-reduction, the Enhancer's padding counters over the traced pass and the
-per-layer numbers of `layer_metrics`.
+`harness.Run.traced` profiles every traced stretch with `traced` below,
+and `run_cell` hands the reduction to the per-layer readers under
+`metrics/` (`Facts.spans`) and prints its `note()` as a `note spans`
+line on standard error: `python3 benchmark/run.py ... --trace 1` is the
+span report.
 """
 
 from __future__ import annotations
 
-import argparse
 import bisect
 import collections
 import dataclasses
-import importlib
-import inspect
-import json
-import os
-import statistics
-import sys
-import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
-if __name__ == "__main__":
-    sys.path[0] = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import torch
 
-import torch  # noqa: E402
-
-from benchmark import compare, devtrace, flops, harness, inputs  # noqa: E402
-from benchmark.reference.model import Geometry  # noqa: E402
+from benchmark import devtrace
 
 PREFIX = "idccrn."
 ENTRIES = ("idccrn.enhance.batch", "idccrn.stream.chunk", "idccrn.train.step")
@@ -185,8 +170,11 @@ def summarize(events) -> SpanSummary:
 
 
 def traced(fn, device: torch.device):
-    """(fn(), devtrace.Summary, SpanSummary) of one traced stretch, run
-    as `devtrace.traced` runs it."""
+    """(fn(), devtrace.Summary, SpanSummary) of one traced stretch: fn
+    under torch.profiler (CPU and, on a card, CUDA activities) inside
+    the user annotation `devtrace.STRETCH`, closed by a synchronize, the
+    profiler's raw events (`kineto_results.events()`) reduced twice,
+    without torch's slower tree of FunctionEvents."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     acts = [ProfilerActivity.CPU]
@@ -200,134 +188,3 @@ def traced(fn, device: torch.device):
     events = prof.profiler.kineto_results.events()
     return result, devtrace.summarize(events), summarize(events)
 
-
-def pass_decoder_flops(config: dict, mix: dict, seed: int,
-                       bucket: int) -> float:
-    """`flops.decoder_macs` x 2 x the decoders the out-type runs, over
-    the buckets of one pass of the eval pool."""
-    geo, fs = Geometry.of(config), config["stft"]["fs"]
-    s, b = mix["num_samples"], mix["batch_size"]
-    decoders = 1 if config["serve"]["outtype"] == "clean_direct" else 2
-    lengths = [len(w) for w in inputs.utterance_pool(mix, seed, fs)]
-    return sum(2.0 * decoders * flops.decoder_macs(geo, rows * s, rows, t)
-               for rows, t in flops.bucket_frames(lengths, b,
-                                                  config["stft"]["hop"],
-                                                  bucket))
-
-
-def layer_metrics(facts: harness.Facts, sp: SpanSummary,
-                  counters: Optional[dict] = None,
-                  dec_flops: Optional[float] = None) -> Dict[str, float]:
-    """The per-layer numbers the spans and the counters give, by the
-    name each would carry in BENCHMARK.json; a number whose span or
-    counter is missing is left out."""
-    t, work, out = facts.trace, facts.trace_work, {}
-    wall = lambda name: sp.wall_s.get(name)
-    if facts.kind == "eval_utterances":
-        if wall("idccrn.lstm"):
-            out["lstm_ms.enhance"] = (
-                1e3 * wall("idccrn.lstm") / work["audio_s"])
-            idle = t.window_s - t.busy_s
-            out["idle_in_lstm.enhance"] = (
-                100.0 * sp.idle_s.get("idccrn.lstm", 0.0) / idle)
-        if dec_flops and sp.device_s.get("idccrn.dec"):
-            out["dec_mfu.enhance"] = 100.0 * dec_flops / (
-                sp.device_s["idccrn.dec"] * facts.peak_tflops * 1e12)
-        if counters and counters.get("padded_frames"):
-            out["pad_share.enhance"] = 100.0 * (
-                counters["padded_frames"] - counters["real_frames"]) \
-                / counters["padded_frames"]
-    elif facts.kind == "train_step":
-        for phase in ("forward", "backward", "optimizer"):
-            if wall(f"idccrn.train.{phase}"):
-                out[f"{phase}_ms.train"] = (
-                    1e3 * wall(f"idccrn.train.{phase}") / work["steps"])
-    elif facts.kind == "stream_paced":
-        chunks = sp.items_s.get("idccrn.stream.chunk")
-        if chunks:
-            out["chunk_launch_ms.stream"] = 1e3 * statistics.median(chunks)
-        if wall("idccrn.lstm"):
-            out["lstm_ms.stream"] = 1e3 * wall("idccrn.lstm") / work["chunks"]
-    return out
-
-
-class SpanRun(harness.Run):
-    """A run whose traced stretch is also reduced by span, with the
-    program's counters (an Enhancer's) read around it."""
-
-    program = spans = counters = None
-
-    def traced(self, fn):
-        before = dict(getattr(self.program, "counters", {}))
-        result, summary, self.spans = traced(fn, self.device)
-        after = getattr(self.program, "counters", {})
-        self.counters = {k: v - before.get(k, 0) for k, v in after.items()}
-        return result, summary
-
-
-def report(cell: str, seed: int, seconds: float, device: torch.device,
-           t0: float, root: str = harness.ROOT, config: Optional[dict] = None,
-           mix: Optional[dict] = None) -> dict:
-    """One run of `cell` with a traced stretch, reduced by span."""
-    bench = harness.load_json(root, "BENCHMARK.json")
-    entry = next(w for w in bench["workloads"] if w["name"] == cell)
-    here = os.path.join(root, "benchmark")
-    config = config or harness.load_json(here, "configs",
-                                         f"{entry['config']}.json")
-    mix = mix or harness.load_json(here, "traffic", f"{entry['traffic']}.json")
-    limits = harness.load_json(here, "workloads", f"{cell}.json")["limits"]
-    traffic = importlib.import_module(f"benchmark.traffic.{mix['kind']}")
-    run = SpanRun(cell, config, mix, limits, seed, seconds, True, device, t0)
-    build = inspect.signature(traffic.run).parameters["build"].default
-
-    def keep(*args, **kwargs):
-        run.program = build(*args, **kwargs)
-        return run.program
-
-    out = traffic.run(run, build=keep)
-    t, sp = out.facts.trace, run.spans
-    dec_flops = (pass_decoder_flops(config, mix, seed,
-                                    run.program.bucket_frames)
-                 if out.facts.kind == "eval_utterances" else None)
-    return {
-        "cell": cell, "seed": seed,
-        "correct": out.failed == 0 and all(
-            compare.within(v, lim) for v, lim in out.checks.values()),
-        "e2e": out.e2e, "setup_s": run.setup_s,
-        "trace": {"window_s": t.window_s, "busy_s": t.busy_s,
-                  "device_s": sum(t.op_s.values()),
-                  "marks_s": t.marks_s, "work": out.facts.trace_work},
-        "sums": {"device_s": sum(sp.device_s.values()),
-                 "idle_s": sum(sp.idle_s.values())},
-        "metrics": layer_metrics(out.facts, sp, run.counters, dec_flops),
-        "counters": run.counters, "dec_flops": dec_flops,
-        "wall_s": sp.wall_s, "count": sp.count,
-        "items_ms_p50": {k: 1e3 * statistics.median(v)
-                         for k, v in sp.items_s.items()},
-        "per_item": {k: sum(sp.count.values()) / len(v)
-                     for k, v in sp.items_s.items()},
-        **sp.note(),
-        "card": harness.power_limit() if device.type == "cuda" else None,
-    }
-
-
-def main(argv) -> int:
-    t0 = time.perf_counter()
-    p = argparse.ArgumentParser(description="One traced run of one cell, "
-                                            "reduced by the program's spans.")
-    p.add_argument("--workload", required=True)
-    p.add_argument("--seed", type=int, required=True)
-    p.add_argument("--seconds", type=float, required=True)
-    args = p.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("needs a CUDA card", file=sys.stderr)
-        return 3
-    torch.set_num_threads(2)
-    line = report(args.workload, args.seed, args.seconds,
-                  torch.device("cuda", 0), t0)
-    print(json.dumps(line), flush=True)
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))

@@ -1,11 +1,14 @@
 """The harness: BENCHMARK.json against the contract's form, every file
 found by name, each traffic module run for a second at the tests' width
-on the CPU through the harness, the refusal without a card, and (marked
-`card`) each cell for a few seconds on a card."""
+on the CPU through the harness, a cell joined as new files alone, the
+refusal without a card, and (marked `card`) each cell for a few seconds
+on a card."""
 
+import importlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -14,7 +17,7 @@ import pytest
 import torch
 
 from benchmark import harness
-from benchmark.tests.conftest import ROOT, tiny_config
+from benchmark.tests.conftest import ROOT, small_mix, tiny_config
 
 HERE = os.path.join(ROOT, "benchmark")
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
@@ -28,8 +31,8 @@ KEYS = {
 RESULT_KEYS = ("correct", "attempted", "failed", "metrics", "device")
 
 
-def bench() -> dict:
-    return harness.load_json(ROOT, "BENCHMARK.json")
+def bench(root: str = ROOT) -> dict:
+    return harness.load_json(root, "BENCHMARK.json")
 
 
 def test_benchmark_json_form():
@@ -75,9 +78,17 @@ def test_benchmark_json_form():
 
 
 def test_files_found_by_name():
-    """Every name in BENCHMARK.json has its file, and every file under
-    configs/, workloads/ and metrics/ has its name."""
+    """Every name in BENCHMARK.json has its file, every file under
+    configs/, workloads/ and metrics/ has its name, and every
+    configuration and traffic file its CPU tests' size under tests/."""
     b = bench()
+    for data, size in (("configs", "tiny"), ("traffic", "small")):
+        want = {f for f in os.listdir(os.path.join(HERE, data))
+                if f.endswith(".json")}
+        have = set(os.listdir(os.path.join(HERE, "tests", size)))
+        assert not want - have, \
+            f"no CPU test size in benchmark/tests/{size}/ for {want - have}"
+        assert not have - want, f"benchmark/tests/{size}/: {have - want}"
     configs = {c["name"] for c in b["configs"]}
     for c in b["configs"]:
         assert harness.load_json(ROOT, c["file"])["name"] == c["name"]
@@ -91,36 +102,27 @@ def test_files_found_by_name():
         assert limits["limits"] and all(v > 0 for v in
                                         limits["limits"].values())
         mix = harness.load_json(HERE, "traffic", f"{w['traffic']}.json")
-        assert os.path.exists(os.path.join(HERE, "traffic",
-                                           f"{mix['kind']}.py"))
+        for path in (("traffic", f"{mix['kind']}.py"),
+                     ("tests", "faults", f"{mix['kind']}.py")):
+            assert os.path.exists(os.path.join(HERE, *path)), path
+        kind = importlib.import_module(f"benchmark.traffic.{mix['kind']}")
+        assert kind.CONTROL in kind.SIDES
     readers = harness.metric_readers()
     assert set(readers) == {m["name"] for m in b["per_layer"]}
 
 
-SMALL = {
-    "eval_s10": {"batch_size": 2, "num_samples": 3,
-                 "pool": [{"count": 2, "seconds": 0.6},
-                          {"count": 2, "min_s": 0.2, "max_s": 0.5}]},
-    "train_b16": {"batch_size": 2, "num_samples": 3, "segment_frames": 41,
-                  "pool_utterances": 4, "pool_seconds": 1.0},
-    "stream_b1": {},
-}
-
-
 def small_run(cell: str, trace: bool, seconds: float = 1.0,
-              compute: str = None):
+              compute: str = None, root: str = ROOT, seed: int = 2**33 + 5):
     """run_cell at the tests' width and a small mix, on the CPU."""
-    config_name, traffic = cell.split(".")
-    config = tiny_config(config_name)
+    entry = next(w for w in bench(root)["workloads"] if w["name"] == cell)
+    config = tiny_config(entry["config"], root)
     if compute:
         for use in ("serve", "train", "stream"):
             if use in config:
                 config[use]["compute"] = compute
-    mix = dict(harness.load_json(HERE, "traffic", f"{traffic}.json"),
-               **SMALL[traffic])
-    return harness.run_cell(cell, 2**33 + 5, seconds, trace,
-                            torch.device("cpu"), time.perf_counter(),
-                            config=config, mix=mix)
+    return harness.run_cell(cell, seed, seconds, trace, torch.device("cpu"),
+                            time.perf_counter(), root=root, config=config,
+                            mix=small_mix(entry["traffic"], root))
 
 
 @pytest.mark.parametrize("cell", [w["name"] for w in bench()["workloads"]])
@@ -140,6 +142,50 @@ def test_traffic_runs_on_the_cpu(cell, trace):
     else:
         assert set(line["metrics"]) == {m["name"] for m in e2e}
         assert all(v["value"] > 0 for v in line["metrics"].values())
+
+
+def test_cell_joins_as_files_alone(tmp_path):
+    """A cell with a mix of a new name joins by new files and entries
+    added to BENCHMARK.json's lists alone: in a copy of the benchmark's
+    files, the mix, its CPU test size and the cell's limits, and a
+    traced run of it at the tests' width comes out correct with its
+    per-layer metrics, read by the readers found by name."""
+    root = str(tmp_path)
+    for folder in ("configs", "traffic", "workloads", "metrics",
+                   os.path.join("tests", "small"),
+                   os.path.join("tests", "tiny")):
+        shutil.copytree(os.path.join(HERE, folder),
+                        os.path.join(root, "benchmark", folder),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+
+    def write(data, *parts):
+        with open(os.path.join(root, *parts), "w") as f:
+            json.dump(data, f)
+
+    b, cell, twin = bench(), "idccrn_vae_z128.join_s2_b3", \
+        "idccrn_vae_z128.eval_s10"
+    write({"kind": "eval_utterances", "why": "a mix added as data",
+           "batch_size": 3, "num_samples": 2,
+           "pool": [{"count": 3, "seconds": 1.0}]},
+          "benchmark", "traffic", "join_s2_b3.json")
+    write({"pool": [{"count": 3, "seconds": 0.5}]},
+          "benchmark", "tests", "small", "join_s2_b3.json")
+    write(harness.load_json(HERE, "workloads", f"{twin}.json"),
+          "benchmark", "workloads", f"{cell}.json")
+    b["workloads"].append({"name": cell, "config": "idccrn_vae_z128",
+                           "traffic": "join_s2_b3", "chips": 1,
+                           "why": "a cell added as data"})
+    for m in b["end_to_end"] + b["per_layer"]:
+        if twin in m.get("workloads", []):
+            m["workloads"].append(cell)
+    write(b, "BENCHMARK.json")
+    torch.set_num_threads(2)
+    line = small_run(cell, True, compute="f32", root=root)
+    assert line["correct"] is True, line["checks"]
+    assert line["attempted"] % 3 == 0 and line["failed"] == 0
+    _, layer = harness.cell_metrics(b, cell)
+    assert {"pad_share.enhance", "lstm_ms.enhance"} <= set(line["metrics"]) \
+        <= {m["name"] for m in layer}
 
 
 def test_refuses_without_a_card():

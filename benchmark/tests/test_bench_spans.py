@@ -1,9 +1,11 @@
 """benchmark/spans.py on hand-made profiler events: device time by the
 innermost span around its launch, idle time split at span edges, the
-backward thread's launches by time, and devtrace's numbers untouched."""
+backward thread's launches by time, devtrace's numbers untouched, and
+each span metric's reader; then each cell's traced run at the tests'
+width, on the CPU."""
 
+import ast
 import math
-import time
 
 import pytest
 import torch
@@ -11,8 +13,8 @@ from torch.autograd import DeviceType
 
 from benchmark import devtrace, harness, spans
 from benchmark.tests import test_bench_harness
-from benchmark.tests.conftest import tiny_config
-from benchmark.tests.test_bench_harness import FakeEvent
+from benchmark.tests.conftest import small_mix
+from benchmark.tests.test_bench_harness import FakeEvent, small_run
 
 CPU, GPU = DeviceType.CPU, DeviceType.CUDA
 MAIN, AUTOGRAD = 1, 2
@@ -142,35 +144,119 @@ def test_devtrace_numbers_unchanged_and_the_sums_close():
     assert s.items_s["idccrn.stream.chunk"] == pytest.approx([490e-9])
 
 
-WANT = {"eval_s10": {"lstm_ms.enhance", "idle_in_lstm.enhance",
-                     "pad_share.enhance"},
-        "train_b16": {"forward_ms.train", "backward_ms.train",
-                      "optimizer_ms.train"},
-        "stream_b1": {"chunk_launch_ms.stream", "lstm_ms.stream"}}
+WANT = {"eval_utterances": {"lstm_ms.enhance", "idle_in_lstm.enhance",
+                            "pad_share.enhance"},
+        "train_step": {"forward_ms.train", "backward_ms.train",
+                       "optimizer_ms.train"},
+        "stream_paced": {"chunk_launch_ms.stream", "lstm_ms.stream"}}
+SPAN_METRICS = sorted(set().union(*WANT.values()) | {"dec_mfu.enhance"})
+
+
+def facts_of(kind: str, events, counters=None, **work) -> harness.Facts:
+    """A run's facts as run_cell hands them to the readers."""
+    facts = harness.Facts(kind=kind, peak_tflops=989.4, trace_work=work,
+                          counters=counters or {})
+    facts.trace, facts.spans = (devtrace.summarize(events),
+                                spans.summarize(events))
+    return facts
+
+
+def eval_events():
+    return stretch(2000) + [
+        Event("idccrn.enhance.batch", CPU, 10, 1900),
+        Event("idccrn.lstm", CPU, 100, 700),
+        Event("aten::mm", CPU, 150, 160, corr=1),
+        Event("idccrn.dec", CPU, 800, 1200),
+        Event("aten::convolution", CPU, 850, 860, corr=2),
+        Event("gemm", GPU, 200, 300, linked=1),
+        Event("tconv", GPU, 900, 1300, linked=2),
+    ]
+
+
+def test_span_metric_readers():
+    """Each of the span metrics' readers, found by name, gives the
+    number worked out by hand here from the same events, counters and
+    work, and nothing on another kind's facts."""
+    readers = harness.metric_readers()
+    counters = {"batches": 1, "rows": 2, "real_frames": 90,
+                "padded_frames": 100}
+    cases = [
+        (facts_of("eval_utterances", eval_events(), counters, audio_s=2.0,
+                  dec_flops=1e6),
+         {"lstm_ms.enhance": 1e3 * 600e-9 / 2.0,
+          # 1500 ns idle, of which 100-200 and 300-700 in the lstm
+          "idle_in_lstm.enhance": 100.0 * 500 / 1500,
+          "dec_mfu.enhance": 100.0 * 1e6 / (400e-9 * 989.4e12),
+          "pad_share.enhance": 10.0}),
+        (facts_of("train_step", stretch() + [
+            Event("idccrn.train.step", CPU, 0, 1000),
+            Event("idccrn.train.forward", CPU, 10, 300),
+            Event("idccrn.train.backward", CPU, 300, 800),
+            Event("idccrn.train.optimizer", CPU, 800, 990)], steps=2),
+         {"forward_ms.train": 1e3 * 290e-9 / 2,
+          "backward_ms.train": 1e3 * 500e-9 / 2,
+          "optimizer_ms.train": 1e3 * 190e-9 / 2}),
+        (facts_of("stream_paced", stretch() + [
+            Event("idccrn.stream.chunk", CPU, 0, 300),
+            Event("idccrn.lstm", CPU, 100, 150),
+            Event("idccrn.stream.chunk", CPU, 400, 600),
+            Event("idccrn.stream.chunk", CPU, 700, 1000),
+            Event("idccrn.lstm", CPU, 800, 870)], chunks=3),
+         {"chunk_launch_ms.stream": 1e3 * 300e-9,
+          "lstm_ms.stream": 1e3 * 120e-9 / 3}),
+    ]
+    for facts, want in cases:
+        got = {name: readers[name](facts) for name in SPAN_METRICS}
+        assert {k: v for k, v in got.items() if v is not None} \
+            == pytest.approx(want)
+    # no span reduction, no number
+    assert all(readers[name](harness.Facts(kind=kind)) is None
+               for kind in WANT for name in SPAN_METRICS)
 
 
 @pytest.mark.parametrize("cell", [w["name"] for w in
                                   test_bench_harness.bench()["workloads"]])
-def test_report_on_the_cpu(cell):
-    """A cell's run with its traced stretch reduced by span, at the
-    tests' width: on the CPU no device op, so every number but the
-    decoder's share of the peak."""
+def test_report_on_the_cpu(cell, capsys, monkeypatch):
+    """A cell's traced run at the tests' width through run_cell: on the
+    CPU no device op, so every span number but the decoder's share of
+    the peak; the span reduction's idle seconds sum to the trace's idle,
+    at most 15 spans an item, and the `note spans` and `note counters`
+    lines."""
     torch.set_num_threads(2)
-    config_name, traffic = cell.split(".")
-    config = tiny_config(config_name)
-    mix = dict(harness.load_json(test_bench_harness.HERE, "traffic",
-                                 f"{traffic}.json"),
-               **test_bench_harness.SMALL[traffic])
-    line = spans.report(cell, 2**33 + 7, 1.0, torch.device("cpu"),
-                        time.perf_counter(), config=config, mix=mix)
-    assert line["correct"] is True
-    assert set(line["metrics"]) == WANT[traffic]
-    assert all(math.isfinite(v) and v > 0 for v in line["metrics"].values())
-    t = line["trace"]
-    assert line["sums"]["idle_s"] == pytest.approx(
-        t["window_s"] - t["busy_s"], rel=1e-9)
-    assert max(line["per_item"].values()) <= 15
-    if traffic == "eval_s10":
-        c = line["counters"]
-        assert c["batches"] == 2 and c["rows"] == 4
+    kept = []
+    traced = harness.Run.traced
+
+    def keep(run, fn):
+        out = traced(run, fn)
+        kept.append(run.spans)
+        return out
+
+    monkeypatch.setattr(harness.Run, "traced", keep)
+    line = small_run(cell, True, seed=2**33 + 7)
+    assert line["correct"] is True, line["checks"]
+    mix = small_mix(cell.split(".", 1)[1])
+    kind = mix["kind"]
+    got = {k: v["value"] for k, v in line["metrics"].items()
+           if k in SPAN_METRICS}
+    assert set(got) == WANT[kind]
+    assert all(math.isfinite(v) and v > 0 for v in got.values())
+    (sp,) = kept
+    dev = line["device"]
+    assert sum(sp.idle_s.values()) == pytest.approx(
+        dev["window_s"] - dev["busy_s"], rel=1e-9)
+    assert max(sum(sp.count.values()) / len(v)
+               for v in sp.items_s.values()) <= 15
+    notes = {}
+    for text in capsys.readouterr().err.splitlines():
+        if text.startswith("note "):
+            _, key, value = text.split(" ", 2)
+            notes[key] = ast.literal_eval(value)
+    assert notes["spans"] == sp.note()
+    if kind == "eval_utterances":
+        c = notes["counters"]
+        passes, rest = divmod(c["rows"], 4)
+        assert passes >= 1 and rest == 0
+        assert c["batches"] == passes * -(-4 // mix["batch_size"])
         assert 0 < c["real_frames"] < c["padded_frames"]
+    else:
+        assert "counters" not in notes

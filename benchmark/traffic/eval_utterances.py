@@ -9,7 +9,10 @@ lengths log-uniform in [min_s, max_s]), "batch_size", "num_samples".
 
 End to end: `enhance_rtfx`, the seconds of input audio of every pass
 over the window's wall seconds. Set-up warms every bucket of the pool
-with one pass.
+with one pass. The traced stretch is whole passes more, as many as
+reach `TRACE_S` seconds (one, where a pass takes longer); its work is
+their audio seconds and their decoders' FLOPs, and the Enhancer is the
+run's program, whose padding counters it reads.
 
 Check: one pass, drawn from the seed, of the window's answers against
 the plain reference's enhancement of the same utterances, batches and
@@ -17,11 +20,17 @@ draws (the reference replays the pass's latent generator from its state
 at the pass's start): `out_gap`, the L2 distance of the pass's answers
 together over the reference's norm. (The worst utterance's distance is
 printed as a note.)
+
+Sides for `benchmark/calibrate.py` (`SIDES`, the control `CONTROL`
+first): the program's own int8 serving path, quant_scope 'enc' and
+'all'.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+import time
 import traceback
 
 import numpy as np
@@ -30,6 +39,8 @@ import torch
 from benchmark import compare, flops, inputs, programs
 from benchmark.harness import Facts, Outcome, Run, peak_for
 from benchmark.reference import model as ref
+
+TRACE_S = 2.0  # the traced stretch's least length, in whole passes
 
 
 def reference_pass(pool, weights, config: dict, mix: dict, gen_state,
@@ -74,18 +85,28 @@ def one_pass(enh, pool, batch: int, gen):
     return outs, sum(not np.isfinite(o).all() for o in outs)
 
 
+def traced_passes(enh, pool, batch: int, gen) -> int:
+    """Whole passes until `TRACE_S` seconds have gone; their count."""
+    t0, k = time.perf_counter(), 0
+    while not k or time.perf_counter() - t0 < TRACE_S:
+        one_pass(enh, pool, batch, gen)
+        k += 1
+    return k
+
+
 def run(run: Run, build=programs.enhancer) -> Outcome:
     config, mix, dev = run.config, run.mix, run.device
     fs, hop = config["stft"]["fs"], config["stft"]["hop"]
     s, b = mix["num_samples"], mix["batch_size"]
     weights = inputs.make_weights(programs.layouts(config, "serve"),
                                   run.seed, dev)
-    enh = build(config, weights, s, dev)
+    enh = run.program = build(config, weights, s, dev)
     pool = inputs.utterance_pool(mix, run.seed, fs)
     pass_audio = sum(len(w) for w in pool) / fs
-    pass_flops = sum(flops.serve_flops(config, rows, t, s) for rows, t in
-                     flops.bucket_frames([len(w) for w in pool], b, hop,
-                                         enh.bucket_frames))
+    buckets = flops.bucket_frames([len(w) for w in pool], b, hop,
+                                  enh.bucket_frames)
+    pass_flops = sum(flops.serve_flops(config, rows, t, s)
+                     for rows, t in buckets)
     gen = torch.Generator(device=dev).manual_seed(
         inputs.subseed(run.seed, "enhance"))
     one_pass(enh, pool, b, torch.Generator(device=dev).manual_seed(0))
@@ -106,14 +127,18 @@ def run(run: Run, build=programs.enhancer) -> Outcome:
                   peak_tflops=peak_for(config["serve"]["compute"]),
                   window_peak_bytes=run.window_peak)
     if run.trace:
-        _, facts.trace = run.traced(lambda: one_pass(enh, pool, b, gen))
-        facts.trace_work = {"audio_s": pass_audio}
+        k, facts.trace = run.traced(
+            lambda: traced_passes(enh, pool, b, gen))
+        facts.trace_work = {"audio_s": k * pass_audio, "dec_flops": k * sum(
+            flops.serve_decoder_flops(config, rows, t, s)
+            for rows, t in buckets)}
 
     k = int(np.random.default_rng(inputs.subseed(run.seed, "check"))
             .integers(n))
     state, outs = passes[k]
     bucket = enh.bucket_frames
     del enh, passes
+    run.program = None
     run.free()
     want = reference_pass(pool, weights, config, mix, state, dev, bucket)
     gap = math.inf if outs is None else compare.pooled_gap(outs, want)
@@ -124,3 +149,14 @@ def run(run: Run, build=programs.enhancer) -> Outcome:
                    attempted=n * len(pool), failed=failed,
                    checks={"out_gap": (gap, run.limits["out_gap"])},
                    facts=facts, notes=notes)
+
+
+def _int8(scope: str):
+    def side(r: Run) -> Outcome:
+        return run(r, build=functools.partial(
+            programs.enhancer, compute="int8", quant_scope=scope))
+    return side
+
+
+CONTROL = "int8_enc"
+SIDES = {"int8_enc": _int8("enc"), "int8_all": _int8("all")}

@@ -23,6 +23,10 @@ enhancement of the same audio with a stream's framing (z = mu):
 `chunk_gap`, the worst chunk's L2 distance over its reference's norm (or
 the median chunk's, if larger). The first n_fft - hop output samples
 belong to the zeros before the stream and are not compared.
+
+Side for `benchmark/calibrate.py` (`SIDES`; the control `CONTROL`): the
+plain reference with bf16 operands in the program's place, against the
+reference at float32, on the audio of a run.
 """
 
 from __future__ import annotations
@@ -136,3 +140,25 @@ def run(run: Run, build=programs.streamer) -> Outcome:
                        "latency_ms_p50_p99_max": [
                            float(np.percentile(lat_ms, q)) for q in
                            (50, 99, 100)]})
+
+
+def reference_bf16(run: Run) -> Outcome:
+    """The control's chunk_gap on the audio of `run`; no window."""
+    config, mix, dev = run.config, run.mix, run.device
+    hop = config["stft"]["hop"]
+    m = mix["chunk_frames"] * hop
+    period = m / config["stft"]["fs"]
+    n = max(1, round(run.seconds / period))
+    weights = inputs.make_weights(programs.layouts(config, "stream"),
+                                  run.seed, dev)
+    audio = inputs.stream_audio(n * period, run.seed, config["stft"]["fs"])
+    want = reference_stream(audio, weights, config, dev)
+    got = reference_stream(audio, weights, config, dev, ref.BF16)
+    gap = chunk_gap(got, want, m, config["stft"]["n_fft"] - hop)
+    return Outcome(e2e={}, attempted=n, failed=0,
+                   checks={"chunk_gap": (gap, run.limits["chunk_gap"])},
+                   facts=Facts(kind="stream_paced"))
+
+
+CONTROL = "bf16"
+SIDES = {"bf16": reference_bf16}

@@ -29,10 +29,16 @@ weights, batches and draws. Compared, each by its worst item:
                steps, likewise; leaves whose reference loss gradient is
                under a thousandth of the median leaf's (a conv bias under
                batch norm) move by round-off alone and are left out
+
+Sides for `benchmark/calibrate.py` (`SIDES`, the control `CONTROL`
+first): the trainer at bf16; a fault, each step on half of its batch
+and draws, the loss's mean taken over the rest (a state left unchanged
+reads 1 and needs no run).
 """
 
 from __future__ import annotations
 
+import functools
 import statistics
 import traceback
 
@@ -189,3 +195,27 @@ def run(run: Run, build=programs.trainer) -> Outcome:
     return Outcome(e2e={"train_segments_per_s": n * b / run.window_s},
                    attempted=n, failed=failed, checks=checks, facts=facts,
                    notes=notes)
+
+
+class HalfBatch:
+    """A trainer whose steps see half of their batch and draws."""
+
+    def __init__(self, trainer):
+        self.inner = trainer
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def train_step(self, batch, generator, epoch, noise=None):
+        h = len(batch) // 2
+        return self.inner.train_step(batch[:h], generator, epoch,
+                                     noise=tuple(e[:h] for e in noise))
+
+
+CONTROL = "bf16"
+SIDES = {
+    "bf16": lambda r: run(r, build=functools.partial(programs.trainer,
+                                                     compute="bf16")),
+    "half_batch": lambda r: run(r, build=lambda *a, **k: HalfBatch(
+        programs.trainer(*a, **k))),
+}
