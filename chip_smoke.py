@@ -4,7 +4,7 @@ CUDA card and check them.
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
     python3 chip_smoke.py [--trace-dir DIR] [--only serving|eval|train|
-                          fullwidth|tools|utils|quickstart]
+                          fullwidth|tools|utils|quickstart|cmgan]
 
 It exercises `idccrn_vae_torch` through its entry points at the full
 reference width (channels 1-32-64-128-128-256-256, zdim 128, causal,
@@ -192,13 +192,36 @@ The utilities and the quickstart:
                    temp dir: every stage's checkpoint dir, finite scores,
                    the streamed wav; each stage's seconds
 
-`--only serving|eval|train|fullwidth|tools|utils|quickstart` runs one
-group of phases (eval brings serving along: the CLIs read its weights).
+CMGAN's generator (`--only cmgan`; `models/cmgan.py`, the CUDA kernel
+`rel_attn_fwd` of `ops/rel_attention.py`):
 
-The port has no hand-written kernel yet: every op of these paths is a
-PyTorch op (cuDNN convolution, cuBLAS matmul and the int8 product
-`torch._int_mm`, cuFFT, elementwise, and autograd's backward of each),
-so the kernel table it prints is empty.
+  cmgan_kernel     the kernel against its plain path at the benchmark
+                   cell's shapes, bf16, q, k, v strided as the model
+                   makes them: the time axis, 808 rows of 2600 frames
+                   with key lengths drawn in [1, 2600], and the
+                   frequency axis, 20800 rows of 101 unmasked; relative
+                   L2 within CMGAN_KERNEL_REL_L2; ms alone (CUDA events)
+                   beside the plain path's and the bound
+  cmgan_serve      CmganEnhancer at the published widths, bf16, on 8
+                   utterances of 16 s and 8 of 6 s (buckets of 2600 and
+                   1000 frames, two batches): every answer finite and of
+                   its length, the kernel launched 8 times a batch
+                   (launch count zeroed just before), RTFx
+
+`--only serving|eval|train|fullwidth|tools|utils|quickstart|cmgan` runs
+one group of phases (eval brings serving along: the CLIs read its
+weights).
+
+One hand-written kernel is on these paths: CMGAN's relative-position
+attention, `rel_attn_fwd` (CUDA C++, built with nvcc at its first use).
+Every other op is a PyTorch op (cuDNN convolution, cuBLAS matmul and the
+int8 product `torch._int_mm`, cuFFT, elementwise, and autograd's
+backward of each). The `kernels` line lists the kernel at each shape
+the cmgan group ran: ms, the bound (the larger of its FLOPs, 6 n_q n_k d
+per row and head over the real keys, at 989.4 TFLOP/s, and its bytes,
+q, k, v and the answer once and the table once, at 3.35 TB/s), the
+plain path's ms and `library_ms` null: no PyTorch call computes a
+q-dependent relative term (SDPA takes only a bias built beforehand).
 
 It exits non-zero, and prints no result, when any phase fails or no
 CUDA device is visible. The last line of its output is one JSON object
@@ -2936,13 +2959,123 @@ def phase_quickstart(smi: str) -> None:
           total_s=f"{sum(seconds.values()):.2f}", card=json.dumps(smi))
 
 
+# The kernel against its plain path at bf16: both read the same bf16
+# q, k, v and table and sum in float32; the kernel rounds the softmax's
+# probabilities to bf16 for P v (2**-9 relative each, averaged over the
+# keys) and the answer to bf16 (2**-9). A dropped or misplaced relative
+# term reads tens of percent.
+CMGAN_KERNEL_REL_L2 = 1e-2
+CMGAN_SHAPES = ((808, 2600, True), (8 * 2600, 101, False))
+KERNELS = []
+
+
+def _cuda_ms(fn, iters: int) -> float:
+    """Device ms per call of fn over `iters` warm calls (CUDA events)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_cmgan_kernel(device: str, smi: str) -> None:
+    from idccrn_vae_torch.ops import rel_attention as ra
+
+    heads, d, table = 4, 16, 1025
+    for rows, n, masked in CMGAN_SHAPES:
+        g = torch.Generator(device=device).manual_seed(SEED + rows + n)
+        # as models/cmgan.py makes them: views of one (rows, n, 3, heads,
+        # d) product
+        qkv = torch.randn(rows, n, 3, heads, d, device=device,
+                          generator=g).to(torch.bfloat16)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        emb = torch.randn(table, d, device=device, generator=g).to(
+            torch.bfloat16)
+        lens = None
+        keys = rows * n
+        if masked:
+            lens = torch.randint(1, n + 1, (rows,), device=device,
+                                 generator=g)
+            lens[0], lens[1] = n, 1
+            keys = int(lens.sum())
+        ra.COUNTERS["kernel_launches"] = 0
+        got = ra.rel_attention(q, k, v, emb, lens)
+        torch.cuda.synchronize()
+        _check(ra.COUNTERS["kernel_launches"] == 1,
+               f"cmgan_kernel launches {ra.COUNTERS}")
+        want = ra.rel_attention_plain(q, k, v, emb, lens, block=64)
+        _check(bool(torch.isfinite(got.float()).all()),
+               "cmgan_kernel answer is not finite")
+        err = _rel_l2(got, want)
+        _check(err < CMGAN_KERNEL_REL_L2, f"cmgan_kernel rel L2 {err}")
+        ms = _cuda_ms(lambda: ra.rel_attention(q, k, v, emb, lens), 10)
+        plain_ms = _cuda_ms(lambda: ra.rel_attention_plain(
+            q, k, v, emb, lens, block=64), 2)
+        flops = 6 * heads * n * keys * d
+        moved = 2 * (4 * rows * heads * n * d + table * d)
+        bound_ms = 1e3 * max(flops / 989.4e12, moved / 3.35e12)
+        entry = {"name": "rel_attn_fwd",
+                 "source": "idccrn_vae_torch/csrc/rel_attention.cu",
+                 "shape": f"rows={rows} n={n} heads={heads} d={d} "
+                          f"masked={masked}",
+                 "ms": round(ms, 4), "bound_ms": round(bound_ms, 4),
+                 "plain_ms": round(plain_ms, 3), "library_ms": None,
+                 "rel_l2": err}
+        KERNELS.append(entry)
+        _line("cmgan_kernel", rows=rows, n=n, masked=masked, keys=keys,
+              rel_l2=f"{err:.3e}", tol=CMGAN_KERNEL_REL_L2,
+              ms=f"{ms:.3f}", bound_ms=f"{bound_ms:.3f}",
+              roofline=f"{100 * bound_ms / ms:.2f}%",
+              plain_ms=f"{plain_ms:.1f}", card=json.dumps(smi))
+        del qkv, q, k, v, got, want
+
+
+def phase_cmgan_serve(device: str, smi: str) -> None:
+    from idccrn_vae_torch.eval.enhance import CmganEnhancer
+    from idccrn_vae_torch.models.cmgan import TSCNet
+    from idccrn_vae_torch.ops import rel_attention as ra
+
+    torch.manual_seed(SEED)
+    state = TSCNet().state_dict()   # PyTorch's default inits
+    for name, t in state.items():
+        if name.endswith("rel_pos_emb.weight"):
+            t.normal_()
+    enh = CmganEnhancer(state, compute="bf16", device=device)
+    rng = np.random.default_rng(SEED)
+    pool = [(0.1 * rng.standard_normal(s * FS - i)).astype(np.float32)
+            for s in (16, 6) for i in range(8)]
+    enh.enhance_utterances(pool, 8)   # warm: the build, cuDNN's plans
+    torch.cuda.synchronize()
+    batches = -enh.counters["batches"]
+    ra.COUNTERS["kernel_launches"] = 0
+    t0 = time.perf_counter()
+    outs = enh.enhance_utterances(pool, 8)
+    wall = time.perf_counter() - t0
+    launches = ra.COUNTERS["kernel_launches"]
+    batches += enh.counters["batches"]
+    _check(all(o.shape == w.shape and np.isfinite(o).all()
+               for o, w in zip(outs, pool)), "cmgan_serve answers")
+    _check(batches == 2 and launches == 8 * batches,
+           f"cmgan_serve: {launches} launches over {batches} batches")
+    audio = sum(len(w) for w in pool) / FS
+    _line("cmgan_serve", utterances=len(pool), batches=batches,
+          kernel_launches=launches, audio_s=f"{audio:.1f}",
+          wall_s=f"{wall:.3f}", rtfx=f"{audio / wall:.1f}",
+          peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+          card=json.dumps(smi))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace-dir", default=None,
                     help="also write the profiler trace and table here")
     ap.add_argument("--only", action="append",
                     choices=["serving", "eval", "train", "fullwidth",
-                             "tools", "utils", "quickstart"],
+                             "tools", "utils", "quickstart", "cmgan"],
                     help="run only these groups of phases (repeatable; "
                          "default: all)")
     args = ap.parse_args(argv)
@@ -2952,7 +3085,7 @@ def main(argv=None) -> int:
         return 2
     device = "cuda"
     groups = set(args.only or ("serving", "eval", "train", "fullwidth",
-                               "tools", "utils", "quickstart"))
+                               "tools", "utils", "quickstart", "cmgan"))
     if "eval" in groups:  # the CLIs read the serving phases' weights
         groups.add("serving")
     t_start = time.perf_counter()
@@ -3062,8 +3195,15 @@ def main(argv=None) -> int:
         phase_quickstart(smi)
         _line("quickstart_phases",
               seconds=f"{time.perf_counter() - t_qs:.1f}")
-    # no hand-written kernel is on these paths yet
-    print(json.dumps({"kernels": []}))
+
+    if "cmgan" in groups:
+        t_cmgan = time.perf_counter()
+        torch.cuda.empty_cache()
+        phase_cmgan_kernel(device, smi)
+        torch.cuda.empty_cache()
+        phase_cmgan_serve(device, smi)
+        _line("cmgan_phases", seconds=f"{time.perf_counter() - t_cmgan:.1f}")
+    print(json.dumps({"kernels": KERNELS}))
     _line("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,11 @@ with the mean over samples. Utterances are sorted by length and padded
 up to bucket lengths (multiples of `bucket_frames` STFT frames), the
 convention the JAX package's eval runners share.
 
+The bucketing entry (`BucketedEnhancer`: `_bucketed`, `enhance_batch`,
+`enhance_utterances`, the counters and spans) is shared with CMGAN's
+generator (`CmganEnhancer`, `models/cmgan.py`), which pads and runs a
+batch its own way and takes each row's length.
+
 Out-types (latent_to_use=2 for all but the first):
   'clean_direct'    — sample-mean of the speech decoder's waveform
   'real_imag_mask'  — Wiener-style per-component ratio masks
@@ -22,10 +27,11 @@ import numpy as np
 import torch
 
 from idccrn_vae_torch.device import DeviceLike, resolve_device
+from idccrn_vae_torch.models.cmgan import TSCNet
 from idccrn_vae_torch.models.config import DccrnConfig
 from idccrn_vae_torch.models.nsvae import NsvaeEncoder, split_noisy_skips
 from idccrn_vae_torch.models.vae import VaeDecoder
-from idccrn_vae_torch.ops.stft import istft
+from idccrn_vae_torch.ops.stft import istft, stft
 from idccrn_vae_torch.parallel import distributed
 from idccrn_vae_torch.parallel.mesh import padded_rows, shard_batch
 from idccrn_vae_torch.utils.profiling import span
@@ -90,7 +96,121 @@ def combine_outputs(outtype: str, speech_spec: torch.Tensor,
         raise ValueError(f"unknown outtype {outtype}")
 
 
-class Enhancer:
+class BucketedEnhancer:
+    """The serving entry every enhancer shares: utterances sorted by
+    length, `batch_size` at a time, each batch padded to one bucket
+    (`bucket_length`, a subclass's; `_fill` writes one row, zeros after
+    the utterance by default), copied in, run (`_run`, a subclass's, given
+    each row's length in samples) and copied out, each answer trimmed to
+    its utterance's length.
+
+    counters: host ints, always kept, summed over every batch `_bucketed`
+    has padded: `batches`, `rows`, `real_frames` (`_frames` of each row's
+    length) and `padded_frames` (rows x the bucket's len // hop).
+    """
+
+    hop: int
+    bucket_frames: int
+    device: torch.device
+
+    def __init__(self):
+        self.counters = dict.fromkeys(
+            ("batches", "rows", "real_frames", "padded_frames"), 0)
+
+    def new_generator(self, seed: int = 0) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def bucket_length(self, n_samples: int) -> int:
+        raise NotImplementedError
+
+    def _frames(self, n_samples: int) -> int:
+        return n_samples // self.hop + 1
+
+    def _fill(self, row: np.ndarray, wav: np.ndarray) -> None:
+        row[: len(wav)] = wav
+
+    def _count(self, lengths: Sequence[int], bucket: int) -> None:
+        c = self.counters
+        c["batches"] += 1
+        c["rows"] += len(lengths)
+        c["real_frames"] += sum(self._frames(n) for n in lengths)
+        c["padded_frames"] += len(lengths) * (bucket // self.hop)
+
+    def _run(self, wav: torch.Tensor, generator: Optional[torch.Generator],
+             lengths: torch.Tensor) -> torch.Tensor:
+        """The program on a padded batch; `lengths`, a host tensor, the
+        rows' lengths in samples."""
+        raise NotImplementedError
+
+    def _bucketed(self, wavs: Sequence[np.ndarray], batch_size: int):
+        """Sorted by length, batch_size at a time, each batch padded to
+        one bucket: yields (indices into wavs, (b, bucket) batch, the
+        rows' lengths)."""
+        order = np.argsort([len(w) for w in wavs])
+        for i in range(0, len(order), batch_size):
+            with span("idccrn.pad"):
+                chunk = order[i : i + batch_size]
+                lengths = [len(wavs[j]) for j in chunk]
+                bucket = self.bucket_length(max(lengths))
+                batch = np.zeros((len(chunk), bucket), np.float32)
+                for r, j in enumerate(chunk):
+                    self._fill(batch[r], wavs[j])
+                self._count(lengths, bucket)
+            yield chunk, batch, lengths
+
+    # -- public API --------------------------------------------------------
+    def enhance_batch(self, wavs, generator: Optional[torch.Generator] = None,
+                      lengths: Optional[Sequence[int]] = None
+                      ) -> torch.Tensor:
+        """Enhance a padded batch (B, L) (numpy or tensor); L should be a
+        bucket length, `lengths` the rows' lengths in samples (None: L
+        each). Returns a tensor on the enhancer's device, so a caller can
+        chain batches without host copies. In a data-parallel group every
+        rank passes the same batch, enhances its rows and returns the
+        whole batch's output."""
+        generator = self.new_generator() if generator is None else generator
+        with span("idccrn.copy_in"):
+            wav = torch.as_tensor(wavs, dtype=torch.float32,
+                                  device=self.device)
+        lengths = torch.as_tensor([wav.shape[1]] * wav.shape[0]
+                                  if lengths is None else lengths)
+        n = distributed.world()
+        if n == 1:
+            return self._run(wav, generator, lengths)
+        # data-parallel: zero rows up to a multiple of the world (as the
+        # JAX package pads for its mesh), this rank's rows enhanced with
+        # the un-padded batch's draws, the ranks' outputs gathered
+        b = wav.shape[0]
+        wav = torch.cat([wav, wav.new_zeros((-b % n, wav.shape[1]))])
+        lengths = shard_batch(torch.cat(
+            [lengths, lengths.new_full((-b % n,), wav.shape[1])]))
+        with padded_rows(b):
+            out = self._run(shard_batch(wav), generator, lengths)
+        with torch.inference_mode():
+            return distributed.gather_rows(out)[:b]
+
+    def enhance_utterances(self, wavs: Sequence[np.ndarray],
+                           batch_size: int = 8,
+                           generator: Optional[torch.Generator] = None
+                           ) -> List[np.ndarray]:
+        """Length-bucketed padded batched enhancement of a wav list.
+
+        One generator advances through the batches; each output is
+        trimmed to its input's length.
+        """
+        generator = self.new_generator() if generator is None else generator
+        results: List[Optional[np.ndarray]] = [None] * len(wavs)
+        for chunk, batch, lengths in self._bucketed(wavs, batch_size):
+            with span("idccrn.enhance.batch"):
+                out = self.enhance_batch(batch, generator, lengths)
+                with span("idccrn.copy_out"):
+                    out = out.cpu().numpy()
+            for r, j in enumerate(chunk):
+                results[j] = out[r, : min(len(wavs[j]), out.shape[1])]
+        return results  # type: ignore[return-value]
+
+
+class Enhancer(BucketedEnhancer):
     """NSVAE encoder + pretrained/fine-tuned decoder(s) speech enhancer.
 
     enc_state / dec_state / noise_dec_state are state_dicts under the
@@ -108,9 +228,8 @@ class Enhancer:
     instead of one B*S batch — same outputs, peak decoder memory divided
     by sample_chunks.
 
-    counters: host ints, always kept, summed over every batch `_bucketed`
-    has padded: `batches`, `rows`, `real_frames` (each row's
-    len // hop + 1) and `padded_frames` (rows x the bucket's frames).
+    counters (`BucketedEnhancer`): `real_frames` counts each row's
+    len // hop + 1 frames, `padded_frames` the bucket's len // hop a row.
     """
 
     def __init__(self, enc_cfg: DccrnConfig, dec_cfg: DccrnConfig,
@@ -156,11 +275,8 @@ class Enhancer:
         self.pad_mode = pad_mode
         self.bucket_frames = bucket_frames
         self.sample_chunks = sample_chunks
-        self.counters = dict.fromkeys(
-            ("batches", "rows", "real_frames", "padded_frames"), 0)
-
-    def new_generator(self, seed: int = 0) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(seed)
+        self.hop = enc_cfg.stft.hop
+        super().__init__()
 
     @torch.inference_mode()
     def forward(self, wav: torch.Tensor,
@@ -235,49 +351,8 @@ class Enhancer:
         return bucket_pad_length(n_samples, self.enc_cfg.stft.hop,
                                  self.bucket_frames)
 
-    def _bucketed(self, wavs: Sequence[np.ndarray], batch_size: int):
-        """Sorted by length, batch_size at a time, each batch zero-padded
-        to one bucket: yields (indices into wavs, (b, bucket) batch)."""
-        hop = self.enc_cfg.stft.hop
-        order = np.argsort([len(w) for w in wavs])
-        for i in range(0, len(order), batch_size):
-            with span("idccrn.pad"):
-                chunk = order[i : i + batch_size]
-                bucket = self.bucket_length(max(len(wavs[j]) for j in chunk))
-                batch = np.zeros((len(chunk), bucket), np.float32)
-                for r, j in enumerate(chunk):
-                    batch[r, : len(wavs[j])] = wavs[j]
-                c = self.counters
-                c["batches"] += 1
-                c["rows"] += len(chunk)
-                c["real_frames"] += sum(len(wavs[j]) // hop + 1 for j in chunk)
-                c["padded_frames"] += len(chunk) * (bucket // hop)
-            yield chunk, batch
-
-    # -- public API --------------------------------------------------------
-    def enhance_batch(self, wavs, generator: Optional[torch.Generator] = None
-                      ) -> torch.Tensor:
-        """Enhance a padded batch (B, L) (numpy or tensor); L should be a
-        bucket length. Returns a tensor on the Enhancer's device, so a
-        caller can chain batches without host copies. In a data-parallel
-        group every rank passes the same batch, enhances its rows and
-        returns the whole batch's output."""
-        generator = self.new_generator() if generator is None else generator
-        with span("idccrn.copy_in"):
-            wav = torch.as_tensor(wavs, dtype=torch.float32,
-                                  device=self.device)
-        n = distributed.world()
-        if n == 1:
-            return self.forward(wav, generator)
-        # data-parallel: zero rows up to a multiple of the world (as the
-        # JAX package pads for its mesh), this rank's rows enhanced with
-        # the un-padded batch's draws, the ranks' outputs gathered
-        b = wav.shape[0]
-        wav = torch.cat([wav, wav.new_zeros((-b % n, wav.shape[1]))])
-        with padded_rows(b):
-            out = self.forward(shard_batch(wav), generator)
-        with torch.inference_mode():
-            return distributed.gather_rows(out)[:b]
+    def _run(self, wav, generator, lengths):
+        return self.forward(wav, generator)
 
     @torch.inference_mode()
     def encode_latents(self, wavs: Sequence[np.ndarray], batch_size: int = 8,
@@ -288,7 +363,7 @@ class Enhancer:
         generator = self.new_generator() if generator is None else generator
         hop = self.enc_cfg.stft.hop
         speech, noise = [], []
-        for chunk, batch in self._bucketed(wavs, batch_size):
+        for chunk, batch, _ in self._bucketed(wavs, batch_size):
             out = self.encoder(torch.from_numpy(batch).to(self.device),
                                num_samples=1, generator=generator)
             mus = [torch.stack([g.mu_r, g.mu_i], dim=-1).cpu().numpy()
@@ -303,22 +378,118 @@ class Enhancer:
                     noise.append(mus[1][r, :frames])
         return speech, noise
 
-    def enhance_utterances(self, wavs: Sequence[np.ndarray],
-                           batch_size: int = 8,
-                           generator: Optional[torch.Generator] = None
-                           ) -> List[np.ndarray]:
-        """Length-bucketed padded batched enhancement of a wav list.
 
-        One generator advances through the batches; each output is
-        trimmed to its input's length.
-        """
-        generator = self.new_generator() if generator is None else generator
-        results: List[Optional[np.ndarray]] = [None] * len(wavs)
-        for chunk, batch in self._bucketed(wavs, batch_size):
-            with span("idccrn.enhance.batch"):
-                out = self.enhance_batch(batch, generator)
-                with span("idccrn.copy_out"):
-                    out = out.cpu().numpy()
-            for r, j in enumerate(chunk):
-                results[j] = out[r, : min(len(wavs[j]), out.shape[1])]
-        return results  # type: ignore[return-value]
+class CmganEnhancer(BucketedEnhancer):
+    """CMGAN's generator (`models/cmgan.py` TSCNet) served as upstream's
+    `evaluation.py` serves one utterance, a batch at a time through the
+    shared bucketing entry.
+
+    A row: level-normalised by c = sqrt(L / sum x^2) over its L real
+    samples; padded as upstream pads the utterance alone (up to a
+    multiple of the hop with its own first samples), then with its
+    reflection for the last frame's half window (what the STFT's centring
+    would add at the utterance's end), then zeros to the bucket; STFT
+    (periodic Hamming, n_fft = win_length, centred), |X|^0.3 at X's
+    phase, the generator given the row's ceil(L / hop) + 1 real frames,
+    the compression undone, iSTFT, divided by c. Buckets are multiples of
+    `bucket_frames` STFT frames that hold those frames and the reflection.
+    An utterance whose hop-padded length passes `cut_len` (16 s at 16
+    kHz), which upstream would split into rows, is refused.
+
+    `state` is a TSCNet state dict under upstream's names; `compute`
+    'bf16' or 'f32' (`TSCNet.prepare`; the card's attention kernel takes
+    bf16 alone). counters: besides `BucketedEnhancer`'s (real frames
+    ceil(L / hop) + 1 a row), `attn_scores`: the attention scores the real
+    lengths need, summed over the TSCBs of rows x heads x n_q x n_k, both
+    axes.
+    """
+
+    def __init__(self, state: Mapping[str, torch.Tensor],
+                 num_channel: int = 64, num_tscb: int = 4, heads: int = 4,
+                 max_pos_emb: int = 512, n_fft: int = 400, hop: int = 100,
+                 compute: str = "bf16",
+                 bucket_frames: int = DEFAULT_BUCKET_FRAMES,
+                 cut_len: int = 16000 * 16, device: DeviceLike = None):
+        if compute not in ("bf16", "f32"):
+            raise ValueError(f"compute must be 'bf16' or 'f32', got "
+                             f"{compute!r}")
+        self.device = resolve_device(device)
+        self.n_fft, self.hop = n_fft, hop
+        self.bucket_frames, self.cut_len = bucket_frames, cut_len
+        self.heads = heads
+        self.model = TSCNet(num_channel, n_fft // 2 + 1, num_tscb, heads,
+                            max_pos_emb, device=self.device)
+        self.model.load_state_dict(state)
+        self.model.prepare(torch.bfloat16 if compute == "bf16"
+                           else torch.float32)
+        super().__init__()
+        self.counters["attn_scores"] = 0
+
+    def _frames(self, n_samples: int) -> int:
+        return -(-n_samples // self.hop) + 1
+
+    def bucket_length(self, n_samples: int) -> int:
+        """Samples of the smallest bucket for an n_samples utterance: its
+        frames and the reflection's, rounded up to `bucket_frames`."""
+        if -(-n_samples // self.hop) * self.hop > self.cut_len:
+            raise ValueError(
+                f"an utterance of {n_samples} samples passes cut_len "
+                f"{self.cut_len}: upstream splits it into rows, which this "
+                "enhancer does not")
+        need = self._frames(n_samples) + -(-(self.n_fft // 2) // self.hop)
+        frames = -(-need // self.bucket_frames) * self.bucket_frames
+        return (frames - 1) * self.hop
+
+    def _fill(self, row: np.ndarray, wav: np.ndarray) -> None:
+        n = len(wav)
+        padded = -(-n // self.hop) * self.hop
+        tail = self.n_fft // 2
+        if padded <= tail + 1:
+            raise ValueError(f"an utterance of {n} samples is not longer "
+                             f"than the STFT's half window ({tail})")
+        row[:n] = wav
+        row[n:padded] = wav[: padded - n]
+        # x[padded + k] = x[padded - 2 - k]: the centred STFT's reflection
+        row[padded: padded + tail] = row[padded - 2 - np.arange(tail)]
+
+    def _count(self, lengths: Sequence[int], bucket: int) -> None:
+        super()._count(lengths, bucket)
+        f = self.n_fft // 4 + 1          # bins after the encoder's stride 2
+        per_tscb = sum(self.heads * (f * t * t + t * f * f)
+                       for t in map(self._frames, lengths))
+        self.counters["attn_scores"] += self.model.num_tscb * per_tscb
+
+    @torch.inference_mode()
+    def forward(self, wav: torch.Tensor,
+                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, L) padded batch, the rows' lengths in samples (B,) (None:
+        L) -> (B, L) enhanced."""
+        hop, n_fft = self.hop, self.n_fft
+        with span("idccrn.copy_in"):
+            lengths = (torch.full((wav.shape[0],), wav.shape[1])
+                       if lengths is None else lengths).to(wav.device)
+        with span("idccrn.cmgan.stft"):
+            real = torch.arange(wav.shape[1], device=wav.device)[None, :] \
+                < lengths[:, None]
+            c = torch.sqrt(lengths / (wav * wav * real).sum(-1))[:, None]
+            spec = stft(wav * c, n_fft, hop, n_fft, window="hamming")
+            x = _power_law(spec[..., 0], spec[..., 1], 0.3)
+            x = torch.stack(x, dim=1).transpose(2, 3)     # (B, 2, T, F)
+            frames = (lengths + hop - 1) // hop + 1
+        re, im = self.model(x, frames)
+        with span("idccrn.cmgan.istft"):
+            re, im = _power_law(re[:, 0].transpose(1, 2),
+                                im[:, 0].transpose(1, 2), 1 / 0.3)
+            out = istft(torch.stack([re, im], dim=-1), n_fft, hop, n_fft,
+                        window="hamming", frames=frames)
+            return out / c
+
+    def _run(self, wav, generator, lengths):
+        return self.forward(wav, lengths)
+
+
+def _power_law(re: torch.Tensor, im: torch.Tensor, p: float):
+    """|X|^p at X's phase, as (re, im), in float32."""
+    spec = torch.complex(re.float(), im.float())
+    mag, phase = spec.abs() ** p, spec.angle()
+    return mag * torch.cos(phase), mag * torch.sin(phase)

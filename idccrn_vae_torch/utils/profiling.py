@@ -58,6 +58,19 @@ SPANS = {
     "idccrn.train.backward": "a train step's backward",
     "idccrn.train.optimizer": "a train step's gradient reduction and "
                               "Adam updates",
+    "idccrn.cmgan.stft": "CMGAN: level normalisation, STFT and the "
+                         "power-law compression",
+    "idccrn.cmgan.enc": "CMGAN: magnitude and phase, the dense encoder",
+    "idccrn.cmgan.tscb": "CMGAN: one TSCB (time, then frequency "
+                         "conformer, and the transposes between)",
+    "idccrn.cmgan.attn": "CMGAN: one relative-position attention call, "
+                         "either axis",
+    "idccrn.cmgan.dec.mask": "CMGAN: the mask decoder and the masked "
+                             "magnitude",
+    "idccrn.cmgan.dec.complex": "CMGAN: the complex decoder and the sum "
+                                "at the noisy phase",
+    "idccrn.cmgan.istft": "CMGAN: decompression, inverse STFT and the "
+                          "level undone",
 }
 
 _NO_SPAN = contextlib.nullcontext()
