@@ -4,7 +4,7 @@ CUDA card and check them.
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
     python3 chip_smoke.py [--trace-dir DIR] [--only serving|eval|train|
-                          fullwidth|tools|utils|quickstart|cmgan]
+                          fullwidth|tools|utils|quickstart|cmgan|lstm]
 
 It exercises `idccrn_vae_torch` through its entry points at the full
 reference width (channels 1-32-64-128-128-256-256, zdim 128, causal,
@@ -208,20 +208,41 @@ CMGAN's generator (`--only cmgan`; `models/cmgan.py`, the CUDA kernel
                    its length, the kernel launched 8 times a batch
                    (launch count zeroed just before), RTFx
 
-`--only serving|eval|train|fullwidth|tools|utils|quickstart|cmgan` runs
-one group of phases (eval brings serving along: the CLIs read its
+The LSTM recurrence kernel (`--only lstm`; `csrc/lstm_recurrence.cu`,
+launched by `ops/lstm.py` `_layer` on the card with no grad):
+
+  lstm_kernel      the kernel against the eager step loop at the
+                   benchmark cells' layer calls: z128 eval (S 2, N 16,
+                   H 384, T 1701, bf16), dual (H 768), serve (N 256, T
+                   501) and stream (N 2, T 10, float32, a carried state),
+                   then the float32 dual program at N 256, T 501;
+                   out and the final h and c within LSTM_KERNEL_REL_L2;
+                   ms of the kernel, of the loop and of cuDNN's
+                   torch.nn.LSTM at bf16 over the same frames and rows
+                   (a yardstick only: the port never calls it)
+  lstm_enhancer    one bf16 Enhancer batch of 8 x 10 s at full width
+                   with the counters zeroed: one launch per layer of
+                   each ComplexLSTM call, no step of the eager loop
+
+`--only serving|eval|train|fullwidth|tools|utils|quickstart|cmgan|lstm`
+runs one group of phases (eval brings serving along: the CLIs read its
 weights).
 
-One hand-written kernel is on these paths: CMGAN's relative-position
-attention, `rel_attn_fwd` (CUDA C++, built with nvcc at its first use).
-Every other op is a PyTorch op (cuDNN convolution, cuBLAS matmul and the
-int8 product `torch._int_mm`, cuFFT, elementwise, and autograd's
-backward of each). The `kernels` line lists the kernel at each shape
-the cmgan group ran: ms, the bound (the larger of its FLOPs, 6 n_q n_k d
-per row and head over the real keys, at 989.4 TFLOP/s, and its bytes,
-q, k, v and the answer once and the table once, at 3.35 TB/s), the
-plain path's ms and `library_ms` null: no PyTorch call computes a
-q-dependent relative term (SDPA takes only a bias built beforehand).
+Two hand-written kernels are on these paths, CUDA C++ built with nvcc at
+their first use: CMGAN's relative-position attention, `rel_attn_fwd`,
+and the LSTM recurrence, `lstm_recurrence`. Every other op is a PyTorch
+op (cuDNN convolution, cuBLAS matmul and the int8 product
+`torch._int_mm`, cuFFT, elementwise, and autograd's backward of each).
+The `kernels` line lists each kernel at each shape its group ran: ms,
+the bound, the plain path's ms and `library_ms`. The attention's bound
+is the larger of its FLOPs, 6 n_q n_k d per row and head over the real
+keys, at 989.4 TFLOP/s, and its bytes, q, k, v and the answer once and
+the table once, at 3.35 TB/s; its `library_ms` is null: no PyTorch call
+computes a q-dependent relative term (SDPA takes only a bias built
+beforehand). The LSTM's bound is the larger of its recurrent product,
+S N 4H H 2 T FLOPs, at 989.4 TFLOP/s (bf16) or 66.9 (float32, FFMA),
+and its bytes, xp, w_hh, the carry, out and the final c once, at 3.35
+TB/s; its `library_ms` is cuDNN's LSTM.
 
 It exits non-zero, and prints no result, when any phase fails or no
 CUDA device is visible. The last line of its output is one JSON object
@@ -231,6 +252,7 @@ naming the device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -1010,7 +1032,12 @@ INT8_SCOPES = ("enc", "all")
 INT8_ITERS = 10
 STAGE_ITERS = 20
 # an exported program runs the eager program's aten ops: f32 against
-# eager to 1e-5 of max |out| (TF32 off), bf16 to one bf16 rounding
+# eager to 1e-5 of max |out| (TF32 off), bf16 to one bf16 rounding. The
+# eager side runs its LSTM recurrence on the eager step loop, the aten ops
+# that torch.export traces (`_traced_recurrence`); the distance to the
+# eager program on the card's kernel is printed beside it
+# (`vs_kernel_...`), and the kernel is held against the loop in
+# `lstm_kernel`.
 EXPORT_F32_REL = 1e-5
 EXPORT_BF16_REL = 2.0 ** -8
 EXPORT_F32_S = 0.25  # the f32 export's length: tracing time grows with it
@@ -1151,6 +1178,24 @@ def _artifact_check(phase: str, got, want, rel: float, **fields) -> None:
     _check(err <= rel * scale, f"{phase} rel err {err / scale}")
 
 
+@contextlib.contextmanager
+def _traced_recurrence():
+    """The eager program with its LSTM recurrence on the eager step loop,
+    as torch.export traces it: an artifact is held to the program it
+    holds. On the card with no grad `ops/lstm.py` `_layer` takes the
+    kernel, whose float32 sums run in another order than cuBLAS's, so
+    at bf16 an h near a rounding boundary can round the other way and
+    the later steps carry it on."""
+    from idccrn_vae_torch.ops import lstm
+
+    kernel = lstm._layer_cuda
+    lstm._layer_cuda = lstm._layer_plain
+    try:
+        yield
+    finally:
+        lstm._layer_cuda = kernel
+
+
 def _chained_rtfx(fn, b: int, device: str, iters: int,
                   seconds: float = CLIP_S) -> float:
     n = int(seconds * FS)
@@ -1187,9 +1232,13 @@ def phase_export(weights, device: str, smi: str) -> None:
         eps = serving.draw_eps(b, n, gen, device)
         with torch.no_grad():
             got = module(wav, *eps)
-        want = enh.forward(wav, noise=(eps[0], eps[1]))
+        with _traced_recurrence():
+            want = enh.forward(wav, noise=(eps[0], eps[1]))
+        kernel_err, _ = _max_rel(got, enh.forward(wav, noise=(eps[0],
+                                                               eps[1])))
         _artifact_check("export", got, want, EXPORT_BF16_REL, batch=b,
-                        vs="eager bf16, same eps")
+                        vs="eager bf16, same eps, the traced recurrence",
+                        vs_kernel_max_abs_err=f"{kernel_err:.3e}")
     b = THROUGHPUT_BATCHES[0]
 
     def artifact(w):
@@ -1218,10 +1267,15 @@ def phase_export(weights, device: str, smi: str) -> None:
         eps = s32.draw_eps(2, m, gen, device)
         with torch.no_grad():
             got = prog32.module()(wav, *eps)
-        want = enh32.forward(wav, noise=(eps[0], eps[1]))
+        with _traced_recurrence():
+            want = enh32.forward(wav, noise=(eps[0], eps[1]))
+        kernel_err, _ = _max_rel(got, enh32.forward(wav, noise=(eps[0],
+                                                                 eps[1])))
     _artifact_check("export", got, want, EXPORT_F32_REL, batch=2,
                     compute="f32", clip_s=EXPORT_F32_S,
-                    export_s=f"{f32_s:.1f}", tf32="off")
+                    export_s=f"{f32_s:.1f}", tf32="off",
+                    vs="eager, the traced recurrence",
+                    vs_kernel_max_abs_err=f"{kernel_err:.3e}")
 
     cfg = _config("f32")
     streamer = _streamer(cfg, cfg, *weights, device)
@@ -1233,19 +1287,25 @@ def phase_export(weights, device: str, smi: str) -> None:
     wav = 0.1 * torch.randn(1, STREAM_EXPORT_CHUNKS * mchunk, generator=gen)
     state = [torch.zeros(shape, device=device) for shape, _ in spec]
     ref_state = streamer.init_state(1)
-    outs, refs = [], []
+    kernel_state = streamer.init_state(1)
+    outs, refs, kernel_refs = [], [], []
     with _NoTf32(), torch.no_grad():
         for k in range(STREAM_EXPORT_CHUNKS):
             chunk = wav[:, k * mchunk:(k + 1) * mchunk].to(device)
             out, state = step(state, chunk)
-            ref, ref_state = streamer.process_chunk(ref_state, chunk)
+            with _traced_recurrence():
+                ref, ref_state = streamer.process_chunk(ref_state, chunk)
+            kref, kernel_state = streamer.process_chunk(kernel_state, chunk)
             outs.append(out)
             refs.append(ref)
+            kernel_refs.append(kref)
+    kernel_err, _ = _max_rel(torch.cat(outs, 1), torch.cat(kernel_refs, 1))
     _artifact_check("export_stream", torch.cat(outs, 1), torch.cat(refs, 1),
                     EXPORT_F32_REL, batch=1, chunks=STREAM_EXPORT_CHUNKS,
                     chunk_frames=STREAM_CHUNK_FRAMES,
                     export_s=f"{stream_s:.1f}", state_tensors=len(spec),
-                    tf32="off")
+                    tf32="off", vs="eager, the traced recurrence",
+                    vs_kernel_max_abs_err=f"{kernel_err:.3e}")
 
 
 EVAL_UTTS = 24
@@ -1296,6 +1356,14 @@ def _pcm16(x: np.ndarray) -> np.ndarray:
 def _check_wavs(phase: str, out_dir: str, names, want) -> float:
     """Each written wav is the PCM16 form of `want` to one step; returns
     the largest difference in PCM16 steps."""
+    worst = _wav_diff(out_dir, names, want, phase)
+    _check(worst <= 1.0, f"{phase} wavs differ by {worst} PCM16 steps")
+    return worst
+
+
+def _wav_diff(out_dir: str, names, want, phase: str = "wavs") -> float:
+    """The largest difference in PCM16 steps between the written wavs and
+    the PCM16 form of `want`."""
     from idccrn_vae_torch.data.audio_io import read_wav
 
     worst = 0.0
@@ -1304,7 +1372,6 @@ def _check_wavs(phase: str, out_dir: str, names, want) -> float:
         _check(fs == FS and got.shape == w.shape,
                f"{phase} {name}: {got.shape} at {fs} Hz, want {w.shape}")
         worst = max(worst, float(np.abs(got - _pcm16(w)).max()) * 32768)
-    _check(worst <= 1.0, f"{phase} wavs differ by {worst} PCM16 steps")
     return worst
 
 
@@ -1689,18 +1756,27 @@ def phase_export_cli(dirs: dict, corpus, out_root: str, smi: str,
     serving = export.serving_fn_nsvae(live)
     eager = export.bucketed_call([(meta["length"], serving.call)], serving,
                                  resolve_device(device))
-    gen = torch.Generator().manual_seed(0)
-    want, windows = run_artifact.windowed_enhance(
-        lambda b: eager(b, generator=gen).cpu().numpy(),
-        runners.load_testset(paths), meta["length"], meta["n_fft"], 32)
+    names = [os.path.basename(p) for p in paths]
+
+    def windowed():
+        gen = torch.Generator().manual_seed(0)
+        return run_artifact.windowed_enhance(
+            lambda b: eager(b, generator=gen).cpu().numpy(),
+            runners.load_testset(paths), meta["length"], meta["n_fft"], 32)
+
+    with _traced_recurrence():
+        want, windows = windowed()
     _check(windows == report["windows"], "export_cli window count")
-    lsb = _check_wavs("export_cli", out, [os.path.basename(p) for p in paths],
-                      want)
+    lsb = _check_wavs("export_cli", out, names, want)
+    kernel_want, _ = windowed()
+    kernel_lsb = _wav_diff(out, names, kernel_want)
     _line("export_cli", files=report["files"], windows=windows,
           bucket_s=EXPORT_CLI_S, export_model_s=f"{export_s:.1f}",
           run_artifact_s=f"{run_s:.1f}",
           artifact_rtfx=report["rtf_x"], wav_max_diff_pcm16=f"{lsb:g}",
-          vs="eager, same windows and draws", card=json.dumps(smi))
+          vs="eager, same windows and draws, the traced recurrence",
+          vs_kernel_wav_max_diff_pcm16=f"{kernel_lsb:g}",
+          card=json.dumps(smi))
 
 
 def phase_eval_cli_int8(dirs: dict, corpus, out_root: str, smi: str,
@@ -3069,13 +3145,122 @@ def phase_cmgan_serve(device: str, smi: str) -> None:
           card=json.dumps(smi))
 
 
+# The kernel against the eager loop, relative L2 of out and the final h
+# and c: the derivation and the readings are in
+# tests/test_torch_port_lstm_kernel.py
+LSTM_KERNEL_REL_L2 = {"bf16": 7e-4, "f32": 1e-5}
+# (name, S, N, H, T, compute, carry): the benchmark cells' layer calls,
+# then the float32 dual program at batch 128, where a block walks the
+# most chunks of rows (16) a step
+LSTM_SHAPES = (("z128_eval", 2, 16, 384, 1701, "bf16", False),
+               ("dual_eval", 2, 16, 768, 1701, "bf16", False),
+               ("serve", 2, 256, 384, 501, "bf16", False),
+               ("stream", 2, 2, 384, 10, "f32", True),
+               ("dual_f32_b128", 2, 256, 768, 501, "f32", False))
+
+
+def phase_lstm_kernel(device: str, smi: str) -> None:
+    from idccrn_vae_torch.ops import lstm
+
+    for name, s, n, hid, t_len, compute, carry in LSTM_SHAPES:
+        cdt = torch.bfloat16 if compute == "bf16" else torch.float32
+        g = torch.Generator(device=device).manual_seed(SEED + n + hid)
+        xp = torch.randn(s, t_len, n, 4 * hid, device=device, generator=g)
+        w_hh = ((torch.rand(s, 4 * hid, hid, device=device, generator=g)
+                 * 2 - 1) * hid ** -0.5).to(cdt).float()
+        state = None
+        if carry:
+            state = (torch.randn(s, n, hid, device=device, generator=g)
+                     .tanh().to(cdt),
+                     torch.randn(s, n, hid, device=device, generator=g))
+        cudnn = torch.nn.LSTM(hid, hid).to(device, torch.bfloat16)
+        cudnn.flatten_parameters()
+        seq = torch.randn(t_len, s * n, hid, device=device, generator=g).to(
+            torch.bfloat16)
+        with torch.no_grad():
+            lstm.COUNTERS["kernel_launches"] = 0
+            out, (h, c) = lstm._layer(xp, w_hh, cdt, state)
+            torch.cuda.synchronize()
+            _check(lstm.COUNTERS["kernel_launches"] == 1,
+                   f"lstm_kernel {name} launches {lstm.COUNTERS}")
+            want, (want_h, want_c) = lstm._layer_plain(xp, w_hh, cdt, state)
+            err = max(_rel_l2(out, want), _rel_l2(h, want_h),
+                      _rel_l2(c, want_c))
+            _check(bool(torch.isfinite(out.float()).all()),
+                   f"lstm_kernel {name} answer is not finite")
+            _check(err < LSTM_KERNEL_REL_L2[compute],
+                   f"lstm_kernel {name} rel L2 {err}")
+            ms = _cuda_ms(lambda: lstm._layer_cuda(xp, w_hh, cdt, state), 10)
+            plain_ms = _cuda_ms(lambda: lstm._layer_plain(xp, w_hh, cdt,
+                                                          state), 2)
+            library_ms = _cuda_ms(lambda: cudnn(seq), 10)
+        size = 2 if compute == "bf16" else 4
+        flops = 2 * s * n * 4 * hid * hid * t_len
+        moved = (4 * (xp.numel() + c.numel())
+                 + size * (w_hh.numel() + out.numel())
+                 + (0 if state is None else (size + 4) * s * n * hid))
+        peak = 989.4e12 if compute == "bf16" else 66.9e12
+        bound_ms = 1e3 * max(flops / peak, moved / 3.35e12)
+        KERNELS.append({"name": "lstm_recurrence",
+                        "source": "idccrn_vae_torch/csrc/lstm_recurrence.cu",
+                        "shape": f"{name}: S={s} N={n} H={hid} T={t_len} "
+                                 f"{compute} carry={carry}",
+                        "ms": round(ms, 4), "bound_ms": round(bound_ms, 4),
+                        "plain_ms": round(plain_ms, 3),
+                        "library_ms": round(library_ms, 4), "rel_l2": err})
+        _line("lstm_kernel", shape=name, s=s, n=n, h=hid, t=t_len,
+              compute=compute, carry=carry, rel_l2=f"{err:.3e}",
+              tol=LSTM_KERNEL_REL_L2[compute], ms=f"{ms:.3f}",
+              us_per_step=f"{1e3 * ms / t_len:.2f}",
+              bound_ms=f"{bound_ms:.4f}",
+              roofline=f"{100 * bound_ms / ms:.2f}%",
+              plain_ms=f"{plain_ms:.2f}", library_ms=f"{library_ms:.3f}",
+              card=json.dumps(smi))
+        del xp, w_hh, out, want, cudnn, seq
+
+
+def phase_lstm_enhancer(weights, device: str, smi: str) -> None:
+    from idccrn_vae_torch.models.modules import ComplexLSTM
+    from idccrn_vae_torch.ops import lstm
+
+    enh = _enhancer("bf16", weights, device)
+    layers = []   # the layers of each ComplexLSTM call
+    for m in enh.encoder.modules():
+        if isinstance(m, ComplexLSTM):
+            m.register_forward_hook(
+                lambda mod, *_: layers.append(len(mod.lstm_re.layers())))
+    rng = np.random.default_rng(SEED + 5)
+    wavs = [(0.1 * rng.standard_normal(10 * FS - i)).astype(np.float32)
+            for i in range(8)]
+    enh.enhance_utterances(wavs, batch_size=8)   # warm: the kernel's build
+    torch.cuda.synchronize()
+    layers.clear()
+    lstm.COUNTERS.update(kernel_launches=0, loop_steps=0)
+    t0 = time.perf_counter()
+    outs = enh.enhance_utterances(wavs, batch_size=8)
+    wall = time.perf_counter() - t0
+    counts = dict(lstm.COUNTERS)
+    _check(all(o.shape == w.shape and np.isfinite(o).all()
+               for o, w in zip(outs, wavs)), "lstm_enhancer answers")
+    _check(len(layers) >= 1 and counts["kernel_launches"] == sum(layers)
+           and counts["loop_steps"] == 0,
+           f"lstm_enhancer: {counts} over ComplexLSTM calls of {layers} "
+           "layers")
+    _line("lstm_enhancer", utterances=len(wavs), complex_lstm_calls=len(layers),
+          kernel_launches=counts["kernel_launches"],
+          loop_steps=counts["loop_steps"], wall_s=f"{wall:.3f}",
+          rtfx=f"{sum(len(w) for w in wavs) / FS / wall:.1f}",
+          card=json.dumps(smi))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace-dir", default=None,
                     help="also write the profiler trace and table here")
     ap.add_argument("--only", action="append",
                     choices=["serving", "eval", "train", "fullwidth",
-                             "tools", "utils", "quickstart", "cmgan"],
+                             "tools", "utils", "quickstart", "cmgan",
+                             "lstm"],
                     help="run only these groups of phases (repeatable; "
                          "default: all)")
     args = ap.parse_args(argv)
@@ -3085,7 +3270,8 @@ def main(argv=None) -> int:
         return 2
     device = "cuda"
     groups = set(args.only or ("serving", "eval", "train", "fullwidth",
-                               "tools", "utils", "quickstart", "cmgan"))
+                               "tools", "utils", "quickstart", "cmgan",
+                               "lstm"))
     if "eval" in groups:  # the CLIs read the serving phases' weights
         groups.add("serving")
     t_start = time.perf_counter()
@@ -3203,6 +3389,14 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         phase_cmgan_serve(device, smi)
         _line("cmgan_phases", seconds=f"{time.perf_counter() - t_cmgan:.1f}")
+
+    if "lstm" in groups:
+        t_lstm = time.perf_counter()
+        torch.cuda.empty_cache()
+        phase_lstm_kernel(device, smi)
+        torch.cuda.empty_cache()
+        phase_lstm_enhancer(weights, device, smi)
+        _line("lstm_phases", seconds=f"{time.perf_counter() - t_lstm:.1f}")
     print(json.dumps({"kernels": KERNELS}))
     _line("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""LSTM and complex LSTM as an eager step loop.
+"""LSTM and complex LSTM: one CUDA kernel per layer on the card, an
+eager step loop otherwise.
 
 Mirrors `idccrn_vae_tpu/ops/lstm.py`:
 
@@ -16,30 +17,58 @@ w_ih (4H, In), w_hh (4H, H), b_ih and b_hh (4H,).
 Precision (bf16 compute): the JAX package keeps c in float32 and h in
 the compute dtype, and its matmuls take reduced-precision operands with
 float32 results. The port reproduces those rounding points: every
-matmul runs in float32 on operands rounded to the compute dtype (exact
-products, see ops/dense.py `rounded`), c stays float32, and each h is
-written to an output buffer of the compute dtype, which rounds it.
-cuDNN's LSTM keeps neither split, so it is not used.
+matmul runs on operands rounded to the compute dtype with exact products
+and float32 sums (see ops/dense.py `rounded`), c stays float32, and each
+h is rounded to the compute dtype. cuDNN's LSTM keeps neither split, so
+it is not used.
 
-Each step launches about 9 small device ops (the GEMM, the copy of its
-bias operand, the gates and the state update, and at bf16 the cast of
-h); at 481 frames and 2 layers that is ~9,000 launches per forward, the
-host-bound part of the serving path (PERF.md). When autograd records
-(training), the steps are collected and stacked instead of written into
-a preallocated output, and the backward replays the loop step by step.
+The recurrence of a layer (`_layer`) takes one of two paths, by what it
+is handed:
+  * a CUDA tensor with nothing for autograd to record: the CUDA kernel
+    `lstm_recurrence` (`csrc/lstm_recurrence.cu`, bf16 or float32, any
+    N and T, H up to MAX_HIDDEN = 768), one launch a layer call, which
+    never falls back. Its source's header says what it replaces, what
+    bounds it and how. `ops/cuda_library.py` builds it at its first use.
+    The repo's configurations are inside its H: zdim 128 gives 384, and
+    768 with latent_num 2. A sliced latent's H is 3 zdim latent_num, so
+    a zdim over 128 with two latents, or over 256 with one, raises here
+    on the card with no grad; training runs it (the loop).
+  * otherwise the eager step loop, the plain version: about 9 small ops
+    a frame and a layer. The CPU runs it, and so do training, whose
+    backward autograd replays step by step (the steps are collected and
+    stacked instead of written into a preallocated output), and
+    torch.export / torch.compile tracing, whose graph holds aten ops
+    only.
+
+`COUNTERS`: `kernel_launches`, the kernel's launches; `loop_steps`, the
+steps the eager loop ran on a CUDA tensor.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from idccrn_vae_torch.ops import cuda_library
 from idccrn_vae_torch.ops.complex import csplit
 from idccrn_vae_torch.ops.dense import rounded
+from idccrn_vae_torch.ops.stft import _traced
 
 Layer = Dict[str, torch.Tensor]
 State = List[Tuple[torch.Tensor, torch.Tensor]]
+
+COUNTERS = {"kernel_launches": 0, "loop_steps": 0}
+# the kernel's element types, by the code its launcher takes
+_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+# dtype; xp, w_hh, h0, c0, out, c_final, barrier counters; sets, steps,
+# rows, hidden, padded hidden; device; stream
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+             + [ctypes.c_void_p])
+# the largest hidden size the kernel takes: a block's rows of w_hh, all
+# four gates, fit its shared memory at float32 and S = 2
+MAX_HIDDEN = 768
 
 
 def _layer(xp: torch.Tensor, w_hh: torch.Tensor, cdt: torch.dtype,
@@ -48,8 +77,20 @@ def _layer(xp: torch.Tensor, w_hh: torch.Tensor, cdt: torch.dtype,
 
     xp: (S, T, N, 4H) float32, input matmul and both biases applied.
     w_hh: (S, 4H, H) float32 holding compute-dtype values.
-    Returns outputs (S, T, N, H) at cdt and the final (h, c).
+    Returns outputs (S, T, N, H) at cdt and the final (h, c), c float32.
     """
+    record = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (xp, w_hh, *(carry or ())))
+    if xp.is_cuda and not record and not _traced():
+        return _layer_cuda(xp, w_hh, cdt, carry)
+    return _layer_plain(xp, w_hh, cdt, carry, record)
+
+
+def _layer_plain(xp: torch.Tensor, w_hh: torch.Tensor, cdt: torch.dtype,
+                 carry: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                 record: bool = False):
+    """`_layer` as an eager step loop, the plain version of the kernel;
+    with `record`, the steps are stacked for autograd."""
     s, t_len, n, h4 = xp.shape
     hid = h4 // 4
     whh_t = w_hh.transpose(1, 2)
@@ -58,12 +99,11 @@ def _layer(xp: torch.Tensor, w_hh: torch.Tensor, cdt: torch.dtype,
         c = xp.new_zeros((s, n, hid))
     else:
         h, c = rounded(carry[0], cdt), carry[1].float()
+    if xp.is_cuda:
+        COUNTERS["loop_steps"] += t_len
     # autograd refuses out= arguments: with a graph to record, the steps
     # are collected and stacked (the same rounding points); without one,
     # each h is written straight into the output buffer
-    record = torch.is_grad_enabled() and (
-        xp.requires_grad or w_hh.requires_grad or h.requires_grad
-        or c.requires_grad)
     out = None if record else torch.empty((s, t_len, n, hid), dtype=cdt,
                                           device=xp.device)
     # one view per step: the backward of unbind is one stack, where
@@ -85,6 +125,82 @@ def _layer(xp: torch.Tensor, w_hh: torch.Tensor, cdt: torch.dtype,
     if record:
         out = torch.stack(steps, dim=1)
     return out, (out[:, -1], c)
+
+
+def _layer_cuda(xp: torch.Tensor, w_hh: torch.Tensor, cdt: torch.dtype,
+                carry: Optional[Tuple[torch.Tensor, torch.Tensor]]):
+    """`_layer` in the CUDA kernel `lstm_recurrence`: the same inputs,
+    outputs and rounding points; raises on what the kernel does not take."""
+    s, t_len, n, h4 = xp.shape
+    hid = h4 // 4
+    if cdt not in _DTYPES:
+        raise ValueError(f"the LSTM kernel computes in bf16 or float32, "
+                         f"not {cdt}")
+    if xp.dtype != torch.float32 or not xp.is_contiguous() or h4 % 4 \
+            or t_len < 1 or n < 1 or not 1 <= hid <= MAX_HIDDEN:
+        raise ValueError(f"xp {tuple(xp.shape)} {xp.dtype} stride "
+                         f"{xp.stride()}: the kernel takes contiguous "
+                         "float32 (S, T >= 1, N >= 1, 4H), H from 1 to "
+                         f"{MAX_HIDDEN}")
+    if w_hh.shape != (s, h4, hid) or w_hh.device != xp.device:
+        raise ValueError(f"w_hh {tuple(w_hh.shape)} on {w_hh.device} for xp "
+                         f"{tuple(xp.shape)} on {xp.device}")
+    # rows of w_hh, h and out in whole 16-byte pieces
+    piece = 16 // torch.empty((), dtype=cdt).element_size()
+    hp = -(-hid // piece) * piece
+    # exact: w_hh and the carried h hold compute-dtype values
+    w = _padded(w_hh.to(cdt), hp)
+    h0 = c0 = None
+    if carry is not None:
+        h0 = _padded(carry[0].to(device=xp.device, dtype=cdt), hp)
+        c0 = carry[1].to(device=xp.device, dtype=torch.float32).contiguous()
+        if h0.shape != (s, n, hp) or c0.shape != (s, n, hid):
+            raise ValueError(f"carry {tuple(carry[0].shape)}, "
+                             f"{tuple(c0.shape)}; want ({s}, {n}, {hid})")
+    # the kernel reads h_{t-1} back from out, padding columns too
+    out = (torch.empty if hp == hid else torch.zeros)(
+        (s, t_len, n, hp), dtype=cdt, device=xp.device)
+    c = torch.empty((s, n, hid), dtype=torch.float32, device=xp.device)
+    stream = torch.cuda.current_stream(xp.device)
+    with torch.cuda.device(xp.device):
+        launch = cuda_library.function("lstm_recurrence",
+                                       "lstm_recurrence_launch", _ARGTYPES)
+        err = launch(_DTYPES[cdt], xp.data_ptr(), w.data_ptr(),
+                     None if h0 is None else h0.data_ptr(),
+                     None if c0 is None else c0.data_ptr(), out.data_ptr(),
+                     c.data_ptr(), _barriers(stream, s).data_ptr(), s, t_len,
+                     n, hid, hp, xp.device.index, stream.cuda_stream)
+    if err:
+        raise RuntimeError(f"lstm_recurrence: launch failed, CUDA error {err}")
+    COUNTERS["kernel_launches"] += 1
+    if hp != hid:
+        out = out[..., :hid].contiguous()
+    return out, (out[:, -1], c)
+
+
+def _padded(t: torch.Tensor, hp: int) -> torch.Tensor:
+    """t (..., H) contiguous from a 16-byte aligned address, with zero
+    columns up to hp; t itself where it already is."""
+    if t.shape[-1] == hp and t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    buf = t.new_zeros((*t.shape[:-1], hp))
+    buf[..., : t.shape[-1]] = t
+    return buf
+
+
+_BARRIERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _barriers(stream: torch.cuda.Stream, sets: int) -> torch.Tensor:
+    """The kernel's step counters on `stream`: one a weight set and one
+    more, zero between launches (each launch leaves them zero)."""
+    key = (stream.device.index, stream.cuda_stream)
+    buf = _BARRIERS.get(key)
+    if buf is None or buf.numel() <= sets:
+        buf = _BARRIERS[key] = torch.zeros(max(64, sets + 1),
+                                           dtype=torch.int32,
+                                           device=stream.device)
+    return buf
 
 
 def _stack_sets(sets: Sequence[Sequence[Layer]], k: int, name: str):

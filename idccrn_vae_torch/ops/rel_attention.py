@@ -16,9 +16,8 @@ Two paths of one function:
     (`idccrn_vae_torch/csrc/rel_attention.cu`; bf16, d = 16), the card's
     path: the wrapper `rel_attention` launches it for a CUDA tensor and
     never falls back. The source's header says what it replaces (no TPU
-    kernel), what bounds it and how. It is built with nvcc at its first
-    use into `csrc/build/`, named by a hash of the source and the card's
-    architecture, and bound with ctypes: a later process finds it built.
+    kernel), what bounds it and how. `ops/cuda_library.py` builds it with
+    nvcc at its first use and binds it with ctypes.
 
 `COUNTERS["kernel_launches"]` counts the kernel's launches.
 """
@@ -26,17 +25,18 @@ Two paths of one function:
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from typing import Optional
 
 import torch
 
+from idccrn_vae_torch.ops import cuda_library
+
 COUNTERS = {"kernel_launches": 0}
-CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc")
+
+# q, k, v, emb, out, lengths; their strides (rows, heads, n); rows, n,
+# heads, maxpos; the scale; the stream
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 12
+             + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -96,7 +96,9 @@ def _rel_attention_cuda(q, k, v, emb, lengths):
     out = torch.empty(rows, n, heads, d, dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     with torch.cuda.device(q.device):
-        err = _library().rel_attn_fwd_launch(
+        launch = cuda_library.function("rel_attention",
+                                       "rel_attn_fwd_launch", _ARGTYPES)
+        err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), emb.data_ptr(),
             out.data_ptr(), None if lengths is None else lengths.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -107,52 +109,3 @@ def _rel_attention_cuda(q, k, v, emb, lengths):
         raise RuntimeError(f"rel_attn_fwd: launch failed, CUDA error {err}")
     COUNTERS["kernel_launches"] += 1
     return out
-
-
-_LIBRARY = None
-
-
-def _library() -> ctypes.CDLL:
-    """`csrc/rel_attention.cu` built for this card and loaded, at its
-    first use: nothing is built where no kernel launches (the CPU)."""
-    global _LIBRARY
-    if _LIBRARY is not None:
-        return _LIBRARY
-    src = os.path.join(CSRC, "rel_attention.cu")
-    major, minor = torch.cuda.get_device_capability()
-    if major < 8:
-        raise RuntimeError(f"rel_attn_fwd needs bf16 mma (sm_80 or later), "
-                           f"the card is sm_{major}{minor}")
-    arch = f"{major}{minor}"
-    with open(src, "rb") as f:
-        tag = hashlib.sha256(f.read() + arch.encode()).hexdigest()[:16]
-    out_dir = os.path.join(CSRC, "build")
-    lib = os.path.join(out_dir, f"rel_attention_{tag}.so")
-    if not os.path.exists(lib):
-        os.makedirs(out_dir, exist_ok=True)
-        tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), f"-gencode=arch=compute_{arch},code=sm_{arch}",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-o", tmp, src]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode:
-            raise RuntimeError(f"building rel_attn_fwd failed: {' '.join(cmd)}"
-                               f"\n{r.stdout}{r.stderr}")
-        os.replace(tmp, lib)
-    handle = ctypes.CDLL(lib)
-    # the handle keeps this function object, its types with it
-    fn = handle.rel_attn_fwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 12
-                   + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    _LIBRARY = handle
-    return _LIBRARY
-
-
-def _nvcc() -> str:
-    for path in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
-        if path and os.path.exists(path):
-            return path
-    raise RuntimeError("rel_attn_fwd is built on first use and needs nvcc "
-                       "(CUDA_HOME, /usr/local/cuda or PATH)")
